@@ -1,12 +1,8 @@
-"""The port's host half against the reference: the jax-free `_bucket`,
+"""The port's host half against the reference: the port's `_bucket`,
 `pack_scene` (byte-equal) and the device unpack (bit-equal), on seeded
 synthetic scenes and the reference's small fixture scene."""
 
 from __future__ import annotations
-
-import importlib.util
-import os
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,21 +17,6 @@ from whisper_git_tpu_torch.render.renderer import Renderer
 from whisper_git_tpu_torch.tools.synthetic import KINDS, synthetic_scene
 
 torch.set_num_threads(2)
-
-
-def _pristine_reference_bucket():
-    """The reference's own `_bucket`, from a fresh copy of its module (the
-    imported module's `_bucket` is the port's hook by now)."""
-    path = os.path.join(os.path.dirname(ref_scene.__file__), "scene.py")
-    spec = importlib.util.spec_from_file_location(
-        "whisper_git_tpu.render._scene_pristine", path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod  # dataclasses resolve their module
-    try:
-        spec.loader.exec_module(mod)
-    finally:
-        del sys.modules[spec.name]
-    return mod._bucket
 
 
 @pytest.fixture(scope="module")
@@ -58,12 +39,8 @@ def _scenes(port_renderer, graft_scene):
     return out + [("graft-256x128", graft_scene)]
 
 
-def test_bucket_hook_installed():
-    assert ref_scene._bucket is port_scene._bucket
-
-
 def test_bucket_matches_reference_fine_ladder():
-    ref = _pristine_reference_bucket()
+    ref = ref_scene._bucket  # JAX on the CPU: the reference's fine ladder
     ns = sorted({0, 1, 2, 63, 64, 65, 255, 256, 257, 1023, 1024, 1025, 4095,
                  4096, 4097, 16384, 16385, 65536, 65537, 70000, 100000}
                 | set(range(0, 5000, 37)))

@@ -22,6 +22,27 @@ VIEWPORT = (1280, 800)
 SCROLL_OFFSETS = (0.0, 13.0, 17.0, 63.9, 64.0, 100.3, 111.5, 128.5)
 
 
+def fresh_compile_caches(*renderers):
+    """Empty what layout and scene compile memoize, in both packages. The
+    memos are keyed by content alone, so a layout or a scroll window cached
+    by an earlier test (under another measurer or viewport) would be served
+    to one package's compile and not to the other's, which starts empty."""
+    import whisper_git_tpu.ui.layout as ref_layout
+    import whisper_git_tpu.ui.memo as ref_memo
+    import whisper_git_tpu_torch.ui.layout as port_layout
+    import whisper_git_tpu_torch.ui.memo as port_memo
+
+    for layout in (ref_layout, port_layout):
+        layout._MEASURE_MEMO.clear()
+        layout._SUBTREE_LAYOUT_CACHE.clear()
+    for memo in (ref_memo, port_memo):
+        memo._EL_MEMO.clear()
+    for r in renderers:
+        for cache in (r.compiler._text_cache, r.compiler._subtree_cache,
+                      r.compiler._window_cache):
+            cache.clear()
+
+
 @pytest.fixture(scope="module")
 def history(tmp_path_factory):
     import bench
@@ -33,7 +54,9 @@ def history(tmp_path_factory):
     tab.refresh_sync(include_orphans=False)
     app = WhisperApp.with_tabs([tab])
     app.avatar_cache.enabled = False
-    return app, tab, get_renderer(), Renderer("cpu")
+    ref, port = get_renderer(), Renderer("cpu")
+    fresh_compile_caches(ref, port)
+    return app, tab, ref, port
 
 
 def _compile_both(history, off: float):

@@ -1,8 +1,10 @@
 """Export the reference's SDF font atlases to `data/atlas.npz`.
 
-    JAX_PLATFORMS=cpu python -m whisper_git_tpu_torch.tools.export_atlas [OUT.npz]
+    JAX_PLATFORMS=cpu python tests/tools/export_atlas.py [OUT.npz]
 
-Runs where the reference's atlas build runs (Pillow, matplotlib's DejaVu
+A developer script, not a module of the port: like the tests it imports
+both packages (the reference to build, the port for the npz layout). Run
+it from the repository root. Runs where the reference's atlas build runs (Pillow, matplotlib's DejaVu
 fonts and JAX; `JAX_PLATFORMS=cpu` keeps the EDT on the CPU, through the
 reference package's own platform override). It builds both faces fresh
 (`build_atlas(use_cache=False)`) and writes their textures, glyph metrics,
@@ -14,11 +16,16 @@ reference atlas changes (glyph set, font size, spread); the test
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
 
-from ..render.atlas import ATLAS_NPZ, FACES, atlas_arrays
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+
+from whisper_git_tpu_torch.render.atlas import (  # noqa: E402
+    ATLAS_NPZ, FACES, atlas_arrays)
 
 
 def build_arrays() -> dict:

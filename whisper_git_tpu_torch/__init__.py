@@ -1,20 +1,28 @@
 """whisper_git_tpu_torch — the PyTorch / CUDA port of the frame renderer.
 
-The JAX package (`whisper_git_tpu`) stays the reference. This package
-reuses its device-free modules read-only (`ui/`, `app/`, `gitcore/`,
-`engine/`, `services/`, the scene compiler in `render/scene.py`, the atlas
-types, text shaping, and the CLI's option parser) and owns everything that
-touches the device:
+The JAX package (`whisper_git_tpu`) stays the reference, and this package
+imports nothing of it: `app/`, `ui/`, `engine/`, `gitcore/`, `services/`,
+`ops/lanes.py`, `ops/bezier.py` (its numpy half), `render/scene.py`,
+`render/shaping.py` and the atlas types in `render/atlas.py` are its own
+copies of the reference's device-free modules. What touches the device is
+written for PyTorch and CUDA:
 
-  render/scene.py          jax-free `_bucket` (installed over the reference's)
   render/atlas.py          font atlases loaded from data/atlas.npz
-  render/rasterizer.py     host binning (numpy) + device unpack (torch)
-  render/raster_kernel.py  the tile rasterizer: CUDA kernel + plain version
+  render/rasterizer.py     frame entry points; the packed path: host
+                           binning (numpy) + device unpack (torch)
+  render/frame.py          the frame cache: chrome and windows resident on
+                           the device, block lists built per frame
+  render/raster_kernel.py  K1, the tile rasterizer: CUDA kernel + plain
+                           version (packed path)
+  render/blocks_kernel.py  K2, the blocks rasterizer: CUDA kernel + plain
+                           version (frame cache)
   render/renderer.py       Renderer facade, PNG writer
+  ops/image.py             Lanczos resize of image tiles (numpy)
   host/                    headless screenshot CLI
   csrc/                    CUDA C++ sources, built at first CUDA launch
 
-It imports torch and numpy, and never jax, PIL or matplotlib.
+It imports torch and numpy, and never jax, PIL, matplotlib or
+whisper_git_tpu.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -241,4 +241,47 @@ __device__ __forceinline__ void image_step(
   }
 }
 
+// Quantize this thread's pixels with clip(x * 255 + 0.5, 0, 255) and store
+// them into the interleaved (height, width, 4) u8 frame; pixels past the
+// frame's ragged edge are not written. `x` is the thread's column and `oy`
+// its tile's first row, both in frame pixels.
+__device__ __forceinline__ unsigned char quantize_u8(float v) {
+  return (unsigned char)(fminf(fmaxf(v * 255.0f + 0.5f, 0.0f), 255.0f));
+}
+
+__device__ __forceinline__ void store_u8(const Pixels& f, int x, int oy,
+                                         unsigned char* out, int height,
+                                         int width) {
+  if (x >= width) return;
+  uchar4* o4 = reinterpret_cast<uchar4*>(out);
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int y = oy + f.row0 + i * ROW_STRIDE;
+    if (y < height) {
+      uchar4 o;
+      o.x = quantize_u8(f.r[i]);
+      o.y = quantize_u8(f.g[i]);
+      o.z = quantize_u8(f.b[i]);
+      o.w = quantize_u8(f.a[i]);
+      o4[(size_t)y * width + x] = o;
+    }
+  }
+}
+
+// Store this thread's pixels unquantized into an interleaved (height,
+// width, 4) f32 image (a premultiplied RGBA layer), cropped the same way.
+__device__ __forceinline__ void store_f32(const Pixels& f, int x, int oy,
+                                          float* out, int height,
+                                          int width) {
+  if (x >= width) return;
+  float4* o4 = reinterpret_cast<float4*>(out);
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int y = oy + f.row0 + i * ROW_STRIDE;
+    if (y < height) {
+      o4[(size_t)y * width + x] = make_float4(f.r[i], f.g[i], f.b[i], f.a[i]);
+    }
+  }
+}
+
 }  // namespace raster

@@ -81,21 +81,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
 
-  const int x = ox + col;
-  if (x >= p.width) return;
-  uchar4* out = reinterpret_cast<uchar4*>(p.out);
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int y = oy + f.row0 + i * ROW_STRIDE;
-    if (y < p.height) {
-      uchar4 o;
-      o.x = (unsigned char)(fminf(fmaxf(f.r[i] * 255.0f + 0.5f, 0.0f), 255.0f));
-      o.y = (unsigned char)(fminf(fmaxf(f.g[i] * 255.0f + 0.5f, 0.0f), 255.0f));
-      o.z = (unsigned char)(fminf(fmaxf(f.b[i] * 255.0f + 0.5f, 0.0f), 255.0f));
-      o.w = (unsigned char)(fminf(fmaxf(f.a[i] * 255.0f + 0.5f, 0.0f), 255.0f));
-      out[(size_t)y * p.width + x] = o;
-    }
-  }
+  store_u8(f, ox + col, oy, p.out, p.height, p.width);
 }
 
 }  // namespace raster

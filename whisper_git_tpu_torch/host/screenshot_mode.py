@@ -3,11 +3,10 @@ PNG. Counterpart of `whisper_git_tpu/host/screenshot_mode.py`."""
 
 from __future__ import annotations
 
-from whisper_git_tpu.app.ui_app import WhisperApp
-from whisper_git_tpu.ui.theme import DARK
-
+from ..app.ui_app import WhisperApp
 from ..render.rasterizer import render_scene_device
 from ..render.renderer import get_renderer, save_png
+from ..ui.theme import DARK
 
 
 def compile_frame(app: WhisperApp, renderer, width: int, height: int,

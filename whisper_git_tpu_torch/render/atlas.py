@@ -1,20 +1,278 @@
-"""Font atlases from the committed `data/atlas.npz`.
+"""SDF font atlas: the atlas types and text measurement, and the atlases
+themselves loaded from the committed `data/atlas.npz`.
 
-The reference builds its SDF atlases at start-up (`build_atlas`: Pillow
-rasterizes DejaVu from matplotlib's font folder, then a JAX exact EDT).
-None of those three exists on the GPU machine, so the port ships the
-reference's output: `python -m whisper_git_tpu_torch.tools.export_atlas`
-writes both textures and their glyph metrics, and this module rebuilds the
-reference's `FontAtlas` objects from them with numpy alone.
+`Glyph`, `FontAtlas`, `AtlasMeasurer` and `_CHARS` are the port's own copy
+of the device-free part of `whisper_git_tpu/render/atlas.py`. The
+reference builds its atlases at start-up (`build_atlas`: Pillow rasterizes
+DejaVu from matplotlib's font folder, then a JAX exact EDT). The port has
+none of the three, so it ships the reference's output:
+`tests/tools/export_atlas.py` writes both textures and their glyph metrics
+into the npz, and `load_atlases` rebuilds the `FontAtlas` objects from
+them with numpy alone.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import numpy as np
 
-from whisper_git_tpu.render.atlas import FontAtlas, Glyph
+ATLAS_FONT_PX = 44          # base glyph size rendered into the atlas
+CELL = 64                   # atlas cell size in px (must fit glyph + spread)
+SPREAD = 8.0                # SDF spread in atlas pixels
+
+_CHARS = list(dict.fromkeys(
+    [chr(c) for c in range(32, 127)]              # ASCII
+    + [chr(c) for c in range(0xA1, 0x100)]        # Latin-1 supplement
+    + [chr(c) for c in range(0x100, 0x180)]       # Latin Extended-A
+    # Greek + Cyrillic: DejaVu covers them and commit messages use them.
+    + [chr(c) for c in range(0x386, 0x3CF) if chr(c).isprintable()]
+    + [chr(c) for c in range(0x400, 0x460)]
+    + list("…·→✓—–•✕⚙⚠▸▾▴◂↑↓↗⟳›‹▏●○■□†‡€™")       # UI symbols
+    + list("‘’“”„−±≈≠≤≥")                          # punctuation/math
+))
+
+
+@dataclass
+class Glyph:
+    u: int          # atlas cell origin (px)
+    v: int
+    w: int          # glyph bitmap extent inside the cell (px, atlas scale)
+    h: int          # (kept for measurement; sampling uses the shared band)
+    bearing_x: float  # quad x offset from the pen position, atlas px
+    bearing_y: float  # quad y offset from the line top, atlas px
+    advance: float    # atlas px
+
+
+@dataclass
+class FontAtlas:
+    texture: np.ndarray          # (H, W) uint8 SDF (128 = edge)
+    glyphs: dict                  # char -> Glyph
+    ascent: float                 # atlas px
+    descent: float
+    font_px: float = float(ATLAS_FONT_PX)
+    spread: float = SPREAD
+    is_bold: bool = False  # routes fallback-bank lookups to the bold bank
+    # Cells are BASELINE-ALIGNED: every glyph's ink sits at its line-top
+    # offset within its cell (shifted down by the spread margin), so all
+    # glyphs of a run share one vertical sampling band — the run-batched
+    # kernel builds the row-weight matrix once per run, not per glyph.
+    band_top: float = -SPREAD    # band origin relative to line top, atlas px
+    band_h: float = float(CELL)  # band extent = the full cell
+
+    def __post_init__(self):
+        # Vectorized lookup tables: codepoint → metrics row. Text emission
+        # and measurement run as numpy ops over whole strings.
+        max_cp = max(ord(c) for c in self.glyphs) + 1
+        fallback = self.glyphs.get("?")
+        # columns: u, v, w, h, bearing_x, bearing_y, advance, known
+        self.lut = np.zeros((max_cp, 8), np.float32)
+        if fallback is not None:
+            self.lut[:, :7] = (fallback.u, fallback.v, fallback.w,
+                               fallback.h, fallback.bearing_x,
+                               fallback.bearing_y, fallback.advance)
+        for c, g in self.glyphs.items():
+            cp = ord(c)
+            self.lut[cp] = (g.u, g.v, g.w, g.h, g.bearing_x, g.bearing_y,
+                            g.advance, 1.0)
+        self.max_cp = max_cp
+        self._measure_cache: dict = {}
+        # Lazy fallback bank (render/fallback.py) — attached by the
+        # Renderer; None keeps the resident-only behavior ('?' fallback).
+        self.fallback = None
+
+    def attach_fallback(self, bank) -> None:
+        self.fallback = bank
+        self._measure_cache.clear()
+        getattr(self, "_elide_cache", {}).clear()
+
+    def codepoints(self, s: str) -> np.ndarray:
+        cps = np.frombuffer(s.encode("utf-32-le"), np.uint32).astype(np.int64)
+        return np.where(cps < self.max_cp, cps, ord("?"))
+
+    def raw_codepoints(self, s: str) -> np.ndarray:
+        return np.frombuffer(s.encode("utf-32-le"),
+                             np.uint32).astype(np.int64)
+
+    def metric_rows(self, line: str
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool,
+                               bool]:
+        """Per-codepoint metric rows for one run, consulting the fallback
+        bank for out-of-coverage codepoints (lazily rasterizing them).
+
+        Returns (rows (n,8), abs_v (n,) bool, cps (n,) int64, used_bank,
+        deferred). Rows with abs_v=True came from the bank: their v is
+        ABSOLUTE in the combined font texture (the emitter must not add
+        the bold v-offset). `deferred`=True means some codepoint had
+        chain coverage but no recyclable bank slot THIS frame — it
+        renders '?' now and the caller must not cache the result (the
+        glyph lands next frame).
+
+        RTL/Arabic input passes through render/shaping.py first (bidi
+        visual reorder + presentation forms), HERE — the single choke
+        point — so measured widths, elision bounds, and emitted quads
+        can never disagree about what a string shapes to."""
+        from .shaping import shape_visual
+
+        line = shape_visual(line)
+        cps = self.raw_codepoints(line)
+        clipped = np.where(cps < self.max_cp, cps, ord("?"))
+        rows = self.lut[clipped]          # fancy index → fresh copy
+        abs_v = np.zeros(len(cps), bool)
+        used = False
+        deferred = False
+        bank = self.fallback
+        if bank is not None:
+            unknown = (cps >= self.max_cp) | (rows[:, 7] == 0.0)
+            if unknown.any():
+                uniq = np.unique(cps[unknown])
+                bank.ensure(uniq, bold=self.is_bold)
+                bank.touch([bank.key_for(cp, self.is_bold)
+                            for cp in uniq])
+                for i in np.nonzero(unknown)[0]:
+                    key = bank.key_for(int(cps[i]), self.is_bold)
+                    r = bank.metrics.get(key)
+                    if r is not None:
+                        rows[i] = r
+                        abs_v[i] = True
+                        used = True
+                    elif key not in bank.missing:
+                        deferred = True
+        return rows, abs_v, cps, used, deferred
+
+    def caret_index_from_click(self, s: str, size: float,
+                               rel_x: float) -> int:
+        """Click x (px, relative to the text origin) → LOGICAL caret
+        index, exact through bidi/Arabic shaping: each logical caret
+        slot's visual x comes from the shaped string's advances and the
+        caret map (render/shaping.caret_slots); the nearest slot wins.
+        For plain LTR this is the ordinary nearest-boundary pick."""
+        from .shaping import PRESHAPED, caret_slots, shape_visual
+
+        n = len(s)
+        if n == 0:
+            return 0
+        vis = shape_visual(s)
+        rows, _, _, _, _ = self.metric_rows(PRESHAPED + vis)
+        adv = rows[:, 6] * (size / self.font_px)
+        xs = np.concatenate([[0.0], np.cumsum(adv)])
+        slots = caret_slots(s)
+        best, best_d = 0, float("inf")
+        for k in range(n + 1):
+            d = abs(float(xs[slots[k]]) - rel_x)
+            if d < best_d:
+                best, best_d = k, d
+        return best
+
+    def advance(self, ch: str) -> float:
+        g = self.glyphs.get(ch) or self.glyphs.get("?")
+        return g.advance if g else self.font_px * 0.6
+
+    def measure(self, s: str, size: float) -> float:
+        """Memoized: view strings (timestamps, names, labels) recur across
+        frames, so steady-state layout mostly hits this cache. Fallback-
+        bank advances participate (a CJK subject must measure at its real
+        width, not len × '?'-width); the bank's ensure runs here, so by
+        emit time the glyphs are already resident."""
+        if not s:
+            return 0.0
+        cache = self._measure_cache
+        total = cache.get(s)
+        if total is None:
+            if self.fallback is None:
+                from .shaping import shape_visual
+
+                cps = self.codepoints(shape_visual(s))
+                total = float(self.lut[cps, 6].sum())
+                deferred = False
+            else:
+                # One shared resolution path with text emission
+                # (metric_rows), so measured widths and emitted quads
+                # can never disagree.
+                rows, _, _, _, deferred = self.metric_rows(s)
+                total = float(rows[:, 6].sum())
+            if len(cache) > 100_000:
+                cache.clear()
+            if not deferred:   # deferred widths are '?'-approximate —
+                cache[s] = total  # recompute next frame
+        return total * (size / self.font_px)
+
+    def line_height(self, size: float) -> float:
+        return (self.ascent + self.descent) * (size / self.font_px) * 1.08
+
+    def elide(self, s: str, size: float, max_w: float) -> str:
+        """Cut `s` to fit `max_w` px with a trailing '…' (El.ellipsis —
+        views elide instead of clipping mid-glyph). Memoized per
+        (string, size, width-bucket): visible rows recur every frame."""
+        if not s:
+            return s
+        key = (s, size, round(max_w * 4.0))
+        cache = getattr(self, "_elide_cache", None)
+        if cache is None:
+            cache = self._elide_cache = {}
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        deferred = False
+        if self.measure(s, size) <= max_w + 0.5:
+            out = s
+        else:
+            from .shaping import needs_shaping
+
+            if needs_shaping(s):
+                # Shaped text: metric_rows' advances are in VISUAL order,
+                # so cumulative sums don't map to logical prefixes —
+                # binary-search the longest logical prefix that fits
+                # (each probe is a cached measure of the shaped prefix).
+                if self.fallback is not None:
+                    _, _, _, _, deferred = self.metric_rows(s)
+                lo, hi = 1, len(s)
+                while lo < hi:
+                    mid = (lo + hi + 1) // 2
+                    if self.measure(s[:mid].rstrip() + "…",
+                                    size) <= max_w + 0.5:
+                        lo = mid
+                    else:
+                        hi = mid - 1
+                out = s[:lo].rstrip() + "…"
+            else:
+                scale = size / self.font_px
+                if self.fallback is None:
+                    adv = self.lut[self.codepoints(s), 6] * scale
+                else:
+                    rows, _, _, _, deferred = self.metric_rows(s)
+                    adv = rows[:, 6] * scale
+                ell_w = self.measure("…", size)
+                cum = np.cumsum(adv)
+                fit = int(np.searchsorted(cum, max(max_w - ell_w, 0.0),
+                                          side="right"))
+                out = s[:max(fit, 1)].rstrip() + "…"
+        if not deferred:  # '?'-approximate widths: recompute next frame
+            if len(cache) > 20_000:
+                cache.clear()
+            cache[key] = out
+        return out
+
+
+class AtlasMeasurer:
+    """TextMeasurer backed by real atlas metrics (drop-in for ui.layout)."""
+
+    def __init__(self, regular: FontAtlas, bold_atlas: FontAtlas):
+        self.regular = regular
+        self.bold = bold_atlas
+
+    def width(self, s: str, size: float, bold: bool = False) -> float:
+        return (self.bold if bold else self.regular).measure(s, size)
+
+    def height(self, size: float) -> float:
+        return self.regular.line_height(size)
+
+    def caret_index_from_click(self, s: str, size: float, rel_x: float,
+                               bold: bool = False) -> int:
+        return (self.bold if bold else self.regular
+                ).caret_index_from_click(s, size, rel_x)
+
 
 ATLAS_NPZ = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data", "atlas.npz")

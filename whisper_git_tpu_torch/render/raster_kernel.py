@@ -150,57 +150,99 @@ def _image_cmd(fb, px1, py1, q, clips, atlas, px, py):
     return _over(fb, rgba[:, :3], a)
 
 
+class _TileGrid:
+    """Pixel-centre coordinates of every tile, and the canvas."""
+
+    def __init__(self, tiles_y: int, tiles_x: int, device):
+        T = tiles_y * tiles_x
+        tile = torch.arange(T, device=device)
+        org_x = (tile % tiles_x).float() * TILE_W
+        org_y = (tile // tiles_x).float() * TILE_H
+        xx = torch.arange(TILE_W, dtype=torch.float32, device=device)
+        yy = torch.arange(TILE_H, dtype=torch.float32, device=device)
+        self.px1 = xx + org_x[:, None] + 0.5                  # (T, TW)
+        self.py1 = yy + org_y[:, None] + 0.5                  # (T, TH)
+        self.tiles_y, self.tiles_x = tiles_y, tiles_x
+        self.fb = torch.zeros((T, 4, TILE_H, TILE_W), dtype=torch.float32,
+                              device=device)
+
+    def fill(self, background: tuple):
+        for ch in range(3):
+            self.fb[:, ch] = torch.tensor(background[ch],
+                                          dtype=torch.float32)
+        self.fb[:, 3] = 1.0
+
+    def scan(self, bins, step, lo=None, hi=None):
+        """Composite slot k of every tile's bins row, k ascending. A slot
+        holding −1, or outside the tile's [lo, hi), is skipped, which the
+        XLA scan does by compositing with zero coverage (an exact no-op)."""
+        fb = self.fb
+        for k in range(bins.shape[1]):
+            idx = bins[:, k]
+            ok = idx >= 0
+            if lo is not None:
+                ok = ok & (lo <= k)
+            if hi is not None:
+                ok = ok & (hi > k)
+            act = torch.nonzero(ok).squeeze(1)
+            if act.numel() == 0:
+                continue
+            px1, py1 = self.px1[act], self.py1[act]
+            fb[act] = step(fb[act], idx[act].long(), px1, py1,
+                           px1[:, None, :], py1[:, :, None])
+
+    def image(self, height: int, width: int) -> torch.Tensor:
+        """The canvas as one (height, width, 4) f32 image, ragged edge
+        cropped."""
+        img = self.fb.reshape(self.tiles_y, self.tiles_x, 4, TILE_H, TILE_W)
+        img = img.permute(0, 3, 1, 4, 2).reshape(self.tiles_y * TILE_H,
+                                                 self.tiles_x * TILE_W, 4)
+        return img[:height, :width]
+
+
+def quantize_u8(img: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def class_step(ci: int, tables, ftex, atlas):
+    """The per-slot step of class `ci` (0 shapes, 1 glyphs, 2 images) over
+    its tables, for `_TileGrid.scan`. ftex and atlas are f32."""
+    if ci == 0:
+        shapes, shape_clips = tables
+        return lambda f, i, px1, py1, px, py: _shape_cmd(
+            f, px, py, shapes[i], shape_clips[i])
+    if ci == 1:
+        glyphs, glyph_colors, glyph_clips = tables
+        return lambda f, i, px1, py1, px, py: _glyph_cmd(
+            f, px1, py1, glyphs[i], glyph_colors[i], glyph_clips[i], ftex,
+            px, py)
+    images, image_clips = tables
+    return lambda f, i, px1, py1, px, py: _image_cmd(
+        f, px1, py1, images[i], image_clips[i], atlas, px, py)
+
+
 def render_tiles_plain(layer_data, font_tex, image_atlas, background: tuple,
                        tiles_y: int, tiles_x: int, layer_sig: tuple,
                        height: int, width: int) -> torch.Tensor:
     """The plain version of `render_tiles`: batched over tiles, looping k
-    over each class's bin width. A slot holding −1 is skipped, which the
-    XLA scan does by compositing with zero coverage (an exact no-op)."""
-    dev = font_tex.device
-    T = tiles_y * tiles_x
-    tile = torch.arange(T, device=dev)
-    org_x = (tile % tiles_x).float() * TILE_W
-    org_y = (tile // tiles_x).float() * TILE_H
-    xx = torch.arange(TILE_W, dtype=torch.float32, device=dev)
-    yy = torch.arange(TILE_H, dtype=torch.float32, device=dev)
-    px1_all = xx + org_x[:, None] + 0.5                   # (T, TW)
-    py1_all = yy + org_y[:, None] + 0.5                   # (T, TH)
-    fb = torch.empty((T, 4, TILE_H, TILE_W), dtype=torch.float32, device=dev)
-    for ch in range(3):
-        fb[:, ch] = torch.tensor(background[ch], dtype=torch.float32)
-    fb[:, 3] = 1.0
+    over each class's bin width."""
+    grid = _TileGrid(tiles_y, tiles_x, font_tex.device)
+    grid.fill(background)
     ftex = font_tex.float()
     atlas = image_atlas.float()
-
-    def scan(bins, step):
-        nonlocal fb
-        for k in range(bins.shape[1]):
-            idx = bins[:, k]
-            act = torch.nonzero(idx >= 0).squeeze(1)
-            if act.numel() == 0:
-                continue
-            px1, py1 = px1_all[act], py1_all[act]
-            fb[act] = step(fb[act], idx[act].long(), px1, py1,
-                           px1[:, None, :], py1[:, :, None])
-
     for li, (has_s, has_g, has_i) in enumerate(layer_sig):
         (shapes, shape_clips, glyphs, glyph_colors, glyph_clips, images,
          image_clips, s_bins, g_bins, i_bins) = layer_data[li]
         if has_s:
-            scan(s_bins, lambda f, i, px1, py1, px, py: _shape_cmd(
-                f, px, py, shapes[i], shape_clips[i]))
+            grid.scan(s_bins, class_step(0, (shapes, shape_clips), ftex,
+                                         atlas))
         if has_i:
-            scan(i_bins, lambda f, i, px1, py1, px, py: _image_cmd(
-                f, px1, py1, images[i], image_clips[i], atlas, px, py))
+            grid.scan(i_bins, class_step(2, (images, image_clips), ftex,
+                                         atlas))
         if has_g:
-            scan(g_bins, lambda f, i, px1, py1, px, py: _glyph_cmd(
-                f, px1, py1, glyphs[i], glyph_colors[i], glyph_clips[i],
-                ftex, px, py))
-    img = fb.reshape(tiles_y, tiles_x, 4, TILE_H, TILE_W)
-    img = img.permute(0, 3, 1, 4, 2).reshape(tiles_y * TILE_H,
-                                             tiles_x * TILE_W, 4)
-    img = img[:height, :width]
-    return torch.clamp(img * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+            grid.scan(g_bins, class_step(
+                1, (glyphs, glyph_colors, glyph_clips), ftex, atlas))
+    return quantize_u8(grid.image(height, width))
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +252,7 @@ def render_tiles_plain(layer_data, font_tex, image_atlas, background: tuple,
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("raster_tiles.cu", "raster_steps.cuh")
+HEADERS = ("raster_steps.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -242,9 +284,14 @@ class _RasterParams(ctypes.Structure):
                 ("width", ctypes.c_int), ("out", ctypes.c_void_p)]
 
 
-_LIB = {"lib": None, "path": None, "built": False, "seconds": 0.0,
-        "log": ""}
-_LIB_LOCK = threading.Lock()
+def new_library_state() -> dict:
+    """The state of one kernel library: loaded handle, path, whether this
+    process compiled it, nvcc's seconds and output, and a lock."""
+    return {"lib": None, "path": None, "built": False, "seconds": 0.0,
+            "log": "", "lock": threading.Lock()}
+
+
+_LIB = new_library_state()
 
 
 def _nvcc() -> str:
@@ -256,63 +303,89 @@ def _nvcc() -> str:
     return path
 
 
-def _source_digest() -> str:
+def _source_digest(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (source,) + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
+def build_library(state: dict, source: str, bind) -> dict:
+    """Build (once per source hash) `csrc/<source>` into a shared library
+    under `_build/` and load it; `bind(lib)` declares its C functions.
+    Returns {"path", "built": compiled in this call, "seconds": compile
+    time, "log": nvcc's output (ptxas register and spill report)}. Raises
+    with nvcc's stderr when the build fails."""
+    with state["lock"]:
+        if state["lib"] is None:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            stem = os.path.splitext(source)[0]
+            path = os.path.join(BUILD_DIR,
+                                f"lib{stem}-{_source_digest(source)}.so")
+            if not os.path.exists(path):
+                tmp = f"{path}.{os.getpid()}.tmp"
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                       os.path.join(CSRC_DIR, source)]
+                t0 = time.perf_counter()
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                state["seconds"] = time.perf_counter() - t0
+                state["log"] = res.stdout + res.stderr
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                        f"{res.stderr}")
+                os.replace(tmp, path)
+                state["built"] = True
+            lib = ctypes.CDLL(path)
+            bind(lib)
+            state["lib"] = lib
+            state["path"] = path
+        return {k: state[k] for k in ("path", "built", "seconds", "log")}
+
+
+def _bind(lib) -> None:
+    lib.raster_tiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p]
+    lib.raster_tiles_launch.restype = ctypes.c_int
+    lib.raster_tiles_error_string.argtypes = [ctypes.c_int]
+    lib.raster_tiles_error_string.restype = ctypes.c_char_p
+    lib.raster_params_size.argtypes = []
+    lib.raster_params_size.restype = ctypes.c_int
+    if lib.raster_params_size() != ctypes.sizeof(_RasterParams):
+        raise RuntimeError(
+            f"RasterParams is {lib.raster_params_size()} bytes in C, "
+            f"{ctypes.sizeof(_RasterParams)} in ctypes")
+
+
 def build() -> dict:
-    """Build (once per source hash) and load the kernel library. Returns
-    {"path", "built": compiled in this call, "seconds": compile time,
-    "log": nvcc's output (ptxas register and spill report)}. Raises with
-    nvcc's stderr when the build fails."""
-    with _LIB_LOCK:
-        if _LIB["lib"] is not None:
-            return {k: _LIB[k] for k in ("path", "built", "seconds", "log")}
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR,
-                            f"libraster_tiles-{_source_digest()}.so")
-        if not os.path.exists(path):
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC_DIR, "raster_tiles.cu")]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            _LIB["seconds"] = time.perf_counter() - t0
-            _LIB["log"] = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{res.stderr}")
-            os.replace(tmp, path)
-            _LIB["built"] = True
-        lib = ctypes.CDLL(path)
-        lib.raster_tiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                            ctypes.c_void_p]
-        lib.raster_tiles_launch.restype = ctypes.c_int
-        lib.raster_tiles_error_string.argtypes = [ctypes.c_int]
-        lib.raster_tiles_error_string.restype = ctypes.c_char_p
-        lib.raster_params_size.argtypes = []
-        lib.raster_params_size.restype = ctypes.c_int
-        if lib.raster_params_size() != ctypes.sizeof(_RasterParams):
-            raise RuntimeError(
-                f"RasterParams is {lib.raster_params_size()} bytes in C, "
-                f"{ctypes.sizeof(_RasterParams)} in ctypes")
-        _LIB["lib"] = lib
-        _LIB["path"] = path
-        return {k: _LIB[k] for k in ("path", "built", "seconds", "log")}
+    """Build and load K1's library (see `build_library`)."""
+    return build_library(_LIB, "raster_tiles.cu", _bind)
 
 
-def _check(t: torch.Tensor, name: str, dtype, device, ndim: int):
+def check_tensor(t: torch.Tensor, name: str, dtype, device, ndim: int,
+                 who: str = "render_tiles"):
     if t.device != device or t.dtype != dtype or t.dim() != ndim \
             or not t.is_contiguous():
         raise ValueError(
-            f"render_tiles: {name} must be a contiguous {ndim}-d {dtype} "
+            f"{who}: {name} must be a contiguous {ndim}-d {dtype} "
             f"tensor on {device}; got {tuple(t.shape)} {t.dtype} on "
             f"{t.device} (contiguous={t.is_contiguous()})")
+
+
+def check_atlases(font_tex, image_atlas, device, who: str):
+    check_tensor(font_tex, "font_tex", torch.uint8, device, 2, who)
+    check_tensor(image_atlas, "image_atlas", torch.uint8, device, 3, who)
+    if min(font_tex.shape) < CELL or min(image_atlas.shape[:2]) < CELL \
+            or image_atlas.shape[2] != 4:
+        raise ValueError(f"{who}: atlases must hold at least one "
+                         f"{CELL}x{CELL} cell (image atlas RGBA)")
+
+
+def check_frame_fits(height, width, tiles_y, tiles_x, who: str):
+    if not (0 < height <= tiles_y * TILE_H and 0 < width <= tiles_x * TILE_W):
+        raise ValueError(f"{who}: {width}x{height} frame does not "
+                         f"fit {tiles_x}x{tiles_y} tiles")
 
 
 def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
@@ -322,15 +395,8 @@ def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
     if len(layer_sig) > MAX_LAYERS:
         raise ValueError(f"render_tiles: {len(layer_sig)} layers; the "
                          f"kernel takes at most {MAX_LAYERS}")
-    if not (0 < height <= tiles_y * TILE_H and 0 < width <= tiles_x * TILE_W):
-        raise ValueError(f"render_tiles: {width}x{height} frame does not "
-                         f"fit {tiles_x}x{tiles_y} tiles")
-    _check(font_tex, "font_tex", torch.uint8, device, 2)
-    _check(image_atlas, "image_atlas", torch.uint8, device, 3)
-    if min(font_tex.shape) < CELL or min(image_atlas.shape[:2]) < CELL \
-            or image_atlas.shape[2] != 4:
-        raise ValueError("render_tiles: atlases must hold at least one "
-                         f"{CELL}x{CELL} cell (image atlas RGBA)")
+    check_frame_fits(height, width, tiles_y, tiles_x, "render_tiles")
+    check_atlases(font_tex, image_atlas, device, "render_tiles")
     build()
     lib = _LIB["lib"]
     p = _RasterParams()
@@ -338,13 +404,14 @@ def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
         lt = p.layers[li]
         parts = layer_data[li]
         for name, t in zip(_TABLES, parts[:7]):
-            _check(t, f"layer {li} {name}", torch.float32, device, 2)
+            check_tensor(t, f"layer {li} {name}", torch.float32, device, 2)
             setattr(lt, name, t.data_ptr())
         for ci, (bname, kname) in enumerate((("s_bins", "ks"),
                                              ("g_bins", "kg"),
                                              ("i_bins", "ki"))):
             bins = parts[7 + ci]
-            _check(bins, f"layer {li} {bname}", torch.int32, device, 2)
+            check_tensor(bins, f"layer {li} {bname}", torch.int32, device,
+                         2)
             if bins.shape[0] != T:
                 raise ValueError(f"render_tiles: layer {li} {bname} has "
                                  f"{bins.shape[0]} rows for {T} tiles")

@@ -1,5 +1,6 @@
-"""The packed frame path: host binning in numpy, device unpack in torch,
-tiles rasterized by `raster_kernel.render_tiles`.
+"""The frame entry points, and the packed frame path: host binning in
+numpy, device unpack in torch, tiles rasterized by
+`raster_kernel.render_tiles`.
 
 Counterpart of `whisper_git_tpu/render/rasterizer.py`. The host half
 (`pack_scene` and its helpers) is the reference's numpy code with the
@@ -100,10 +101,11 @@ _WIN_DEV_CACHE: dict = {}   # (comp.uid, caps, device) -> device tensor
 _CLS_KCAP = {0: K_SHAPES, 1: K_GLYPHS, 2: K_IMAGES}
 
 
-def _window_caps(w) -> tuple:
+def _window_caps(w, slot: int) -> tuple:
     comp = w.comp
-    return (_bucket(comp.shapes.shape[0]), _bucket(comp.glyphs.shape[0]),
-            _bucket(comp.images.shape[0]))
+    return (_bucket(comp.shapes.shape[0], ("win", w.layer, slot, "s")),
+            _bucket(comp.glyphs.shape[0], ("win", w.layer, slot, "g")),
+            _bucket(comp.images.shape[0], ("win", w.layer, slot, "i")))
 
 
 def _intersect_boxes(boxes: np.ndarray, clips: np.ndarray) -> np.ndarray:
@@ -344,9 +346,12 @@ def pack_scene(scene: Scene
     tiles_y = -(-scene.height // TILE_H)
     T = tiles_y * tiles_x
     windows = list(getattr(scene, "windows", ()) or ())
+    slot_count: dict[int, int] = {}
     win_entries = []
     for w in windows:
-        caps = _window_caps(w)
+        slot = slot_count.get(w.layer, 0)
+        slot_count[w.layer] = slot + 1
+        caps = _window_caps(w, slot)
         win_entries.append((w, caps, _window_artifacts(w, caps)))
 
     i16_parts: list[np.ndarray] = []
@@ -591,11 +596,22 @@ def render_scene_device(scene: Scene, font_tex: torch.Tensor,
                         ) -> torch.Tensor:
     """Rasterize → (H, W, 4) u8 frame on `font_tex`'s device (no
     readback). font_tex: (FH, FW) u8; image_atlas: (AH, AW, 4) u8, by
-    default the scene's own."""
+    default the scene's own.
+
+    Default path: the device-resident frame cache (render/frame.py —
+    content-addressed chrome, window pair bins gathered on the device, the
+    blocks kernel). WGIT_FRAME_CACHE=0 drops to the single-shot packed
+    path below; the two are bit-identical. The reference's default, the
+    layer-image compose pipeline on top of the frame cache, is not ported,
+    so this is the reference's WGIT_FRAME_COMPOSE=0 configuration."""
+    from . import frame as F
+
     if max(scene.width, scene.height) > MAX_PACKED_PX:
         raise NotImplementedError(
             f"scene {scene.width}x{scene.height} exceeds the packed path's "
             f"{MAX_PACKED_PX} px; the unquantized f32 path is not ported")
+    if F.frame_cache_enabled():
+        return F.render_frame_device(scene, font_tex, image_atlas)
     device = font_tex.device
     if image_atlas is None:
         image_atlas = torch.from_numpy(scene.image_atlas).to(device)

@@ -15,11 +15,9 @@ import zlib
 import numpy as np
 import torch
 
-from whisper_git_tpu.render.atlas import AtlasMeasurer
-from whisper_git_tpu.ui.el import El
-from whisper_git_tpu.ui.layout import LayoutNode, layout_tree
-
-from .atlas import font_texture, load_atlases
+from ..ui.el import El
+from ..ui.layout import LayoutNode, layout_tree
+from .atlas import AtlasMeasurer, font_texture, load_atlases
 from .scene import Scene, SceneCompiler
 
 

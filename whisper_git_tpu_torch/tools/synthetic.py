@@ -12,6 +12,11 @@ Kinds:
   empty   no layers at all: background only
   ragged  shapes and glyphs on a frame whose edges cut tiles
   window  chrome around a scroll window placed at a fractional dy
+  volatile  the window scene with a volatile tail on its layer (shapes and
+          glyphs) and a second layer that is nothing but a volatile shape
+  windows2  two scroll windows on one layer, spliced a third and two
+          thirds into its chrome stream, so that the frame cache cuts each
+          chrome table into three z-segments; a volatile tail on top
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import numpy as np
 from ..render.scene import (_NOCLIP, LayerBuffers, Scene, SubtreeChunks,
                             WindowPart, _bucket)
 
-KINDS = ("shapes", "glyphs", "images", "empty", "ragged", "window")
+KINDS = ("shapes", "glyphs", "images", "empty", "ragged", "window",
+         "volatile", "windows2")
 BACKGROUND = (0.086, 0.098, 0.122, 1.0)
 IMG_GRID = 8
 CELL = 64
@@ -102,11 +108,11 @@ def _layer(rng, w: int, h: int, n_s: int, n_g: int = 0, n_i: int = 0,
         n_g, padded(images, 8), padded(_clips(rng, n_i, w, h), 4), n_i)
 
 
-def _window(rng, regular, bold_v_offset: int, w: int, h: int
+def _window(rng, regular, bold_v_offset: int, w: int, h: int,
+            x0: float = 40.0, dy: float = 30.0 - 37.375, rows: int = 24
             ) -> tuple[SubtreeChunks, tuple, float, float]:
     """Rows of a scroll window in window-relative coordinates, its clip,
     and its (dx, dy) with a fractional dy."""
-    rows = 24
     sh = np.zeros((rows, 16), np.float32)
     sh[:, 1] = 0.0
     sh[:, 2] = np.arange(rows) * 28.0
@@ -128,8 +134,8 @@ def _window(rng, regular, bold_v_offset: int, w: int, h: int
         glyph_colors=rng.uniform(0.3, 1, (n_g, 4)).astype(np.float32),
         glyph_clips=np.tile(noclip, (n_g, 1)),
         images=images, image_clips=np.tile(noclip, (n_i, 1)))
-    clip = (40.0, 30.0, 40.0 + w * 0.6, h - 20.0)
-    return comp, clip, 40.0, 30.0 - 37.375
+    clip = (x0, 30.0, x0 + w * 0.6, h - 20.0)
+    return comp, clip, x0, dy
 
 
 def synthetic_scene(kind: str, seed: int, regular, bold_v_offset: int,
@@ -158,9 +164,24 @@ def synthetic_scene(kind: str, seed: int, regular, bold_v_offset: int,
         layers = [_layer(rng, w, h, 60, 120, 0, regular, bold_v_offset)]
     else:
         layers = [_layer(rng, w, h, 20, 40, 0, regular, bold_v_offset)]
-        comp, clip, dx, dy = _window(rng, regular, bold_v_offset, w, h)
         lb = layers[0]
-        windows = [WindowPart(comp=comp, layer=0, dx=dx, dy=dy, clip=clip,
-                              pos=(lb.n_shapes // 2, lb.n_glyphs // 2, 0))]
+        if kind != "window":
+            # The last rows of the used prefix are the volatile tail.
+            lb.n_dyn_shapes, lb.n_dyn_glyphs = 3, 5
+        # Window k of n is spliced k/(n+1) into the static chrome stream.
+        placed = ([(40.0, 30.0 - 37.375, 24)] if kind != "windows2" else
+                  [(40.0, 30.0 - 37.375, 24), (150.0, 30.0 - 100.25, 16)])
+        for wi, (x0, dy0, rows) in enumerate(placed):
+            comp, clip, dx, dy = _window(rng, regular, bold_v_offset, w, h,
+                                         x0, dy0, rows)
+            frac = (wi + 1) / (len(placed) + 1)
+            windows.append(WindowPart(
+                comp=comp, layer=0, dx=dx, dy=dy, clip=clip,
+                pos=(int((lb.n_shapes - lb.n_dyn_shapes) * frac),
+                     int((lb.n_glyphs - lb.n_dyn_glyphs) * frac), 0)))
+        if kind == "volatile":
+            thumb = _layer(rng, w, h, 2)
+            thumb.n_dyn_shapes = 2
+            layers.append(thumb)
     return Scene(layers=layers, width=w, height=h, background=BACKGROUND,
                  image_atlas=image_atlas, windows=windows)
