@@ -1,0 +1,282 @@
+"""The compose kernel's plain version
+(`whisper_git_tpu_torch/render/compose_kernel.py::compose_tiles_plain`)
+against the reference's Pallas kernel in interpret mode
+(`whisper_git_tpu/render/pallas_compose.py::compose_tiles`) on the same
+bytes, made from a seed with numpy; and the wrapper's rules on the CPU.
+
+Tolerance: at most 1 u8 a channel. Both sides do the same f32 arithmetic
+in the same order, so 0 is expected and the count above 0 is printed."""
+
+from __future__ import annotations
+
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import whisper_git_tpu.render.pallas_compose as PC
+import whisper_git_tpu.render.pallas_raster as PR
+from whisper_git_tpu_torch.render import compose_kernel as CK
+from whisper_git_tpu_torch.render import raster_kernel as K
+from whisper_git_tpu_torch.tools.synthetic import (COMPOSE_CASES,
+                                                   compose_args_to,
+                                                   synthetic_compose)
+
+torch.set_num_threads(2)
+
+TILE_H, TILE_W = CK.TILE_H, CK.TILE_W
+
+
+# ---- carrying arguments between the two kernels --------------------------------
+
+def planar(layer: np.ndarray) -> np.ndarray:
+    """The port's interleaved (h, w, 4) layer → the reference's planar
+    (Ty, Tx, 4, TH, TW) tiles, padded with transparency to whole tiles."""
+    h, w = layer.shape[:2]
+    ty, tx = -(-h // TILE_H), -(-w // TILE_W)
+    full = np.zeros((ty * TILE_H, tx * TILE_W, 4), layer.dtype)
+    full[:h, :w] = layer
+    return np.ascontiguousarray(
+        full.reshape(ty, TILE_H, tx, TILE_W, 4).transpose(0, 2, 4, 1, 3))
+
+
+def interleaved(tiles: np.ndarray) -> np.ndarray:
+    """The reference's planar (Ty, Tx, 4, TH, TW) tiles → the port's
+    interleaved (Ty·TH, Tx·TW, 4) layer."""
+    ty, tx = tiles.shape[:2]
+    return np.ascontiguousarray(
+        np.asarray(tiles).transpose(0, 3, 1, 4, 2).reshape(
+            ty * TILE_H, tx * TILE_W, 4))
+
+
+def port_compose_args(args, statics) -> dict:
+    """The reference's compose dispatch, the `(args, statics)` of its
+    `prepare_compose_dispatch` in kernel mode, as the keyword arguments of
+    the port's `compose._compose_frame` on the CPU: the same blob, the
+    same i16 values of every chrome layer and slab in the port's
+    interleaved layout, the same plan."""
+    blob, images, slabs = args[:3]
+    out = {k: statics[k] for k in ("background", "height", "width",
+                                   "tiles_y", "tiles_x", "meta")}
+    out["blob"] = torch.from_numpy(np.array(blob))
+    out["images"] = tuple(torch.from_numpy(interleaved(a)) for a in images)
+    out["slabs"] = tuple(torch.from_numpy(interleaved(a)) for a in slabs)
+    return out
+
+
+def _reference_frame(a: dict) -> np.ndarray:
+    """`synthetic_compose`'s arguments through the reference's kernel in
+    interpret mode and its `assemble_u8`."""
+    dyns = {}
+    for key, v in a["dyns"].items():
+        if isinstance(v, tuple):
+            dyns[key] = tuple(jnp.asarray(x) for x in v)
+        else:
+            dyns[key] = jnp.asarray(planar(v))
+    out5 = PC.compose_tiles(
+        jnp.asarray(a["starts"]),
+        tuple(jnp.asarray(planar(x)) for x in a["images"]),
+        tuple(jnp.asarray(planar(x)) for x in a["slabs"]), dyns,
+        ops=a["ops"], tiles_y=a["tiles_y"], tiles_x=a["tiles_x"],
+        background=tuple(float(c) for c in a["background"]), interpret=True)
+    return np.asarray(PR.assemble_u8(out5, a["tiles_y"], a["tiles_x"],
+                                     a["height"], a["width"]))
+
+
+def _port_frame(a: dict, fn=CK.compose_tiles_plain) -> np.ndarray:
+    t = compose_args_to(a, "cpu")
+    pos = [t.pop(k) for k in ("starts", "images", "slabs", "dyns")]
+    return fn(*pos, **t).numpy()
+
+
+# ---- the plain version against the reference's kernel --------------------------
+
+@pytest.mark.parametrize("seed", (0, 1))
+@pytest.mark.parametrize("case", COMPOSE_CASES)
+def test_plain_matches_reference_kernel(case, seed):
+    a = synthetic_compose(case, seed)
+    got, want = _port_frame(a), _reference_frame(a)
+    assert got.shape == want.shape == (300, 384, 4)
+    assert got.dtype == np.uint8
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    print(f"{case} seed {seed}: max {d.max()} u8, {(d > 0).sum()} values "
+          "above 0")
+    assert d.max() <= 1
+    assert (got[..., 3] == 255).all()
+
+
+def test_cases_hold_every_op_kind():
+    kinds = {op[0] for case in COMPOSE_CASES
+             for op in synthetic_compose(case, 0)["ops"]}
+    assert kinds == {"img", "slab", "dyni", "dyn"}
+    layers = synthetic_compose("layers", 0)
+    slab_h = layers["slabs"][0].shape[0]
+    starts = layers["starts"].tolist()
+    assert starts[0] % TILE_H == 0 and starts[1] % TILE_H != 0
+    assert starts[2] == slab_h - layers["height"]
+    _, i, ty0, tx0 = layers["ops"][2]
+    assert ty0 > 0 and tx0 > 0
+    # the rect ends on the frame's ragged last tile row
+    assert layers["images"][i].shape[0] == layers["height"] - ty0 * TILE_H
+    assert layers["images"][i].shape[0] % TILE_H != 0
+    assert any(op[0] == "dyni" and op[3] >= 1
+               for op in synthetic_compose("tails", 0)["ops"])
+    assert synthetic_compose("windowless", 0)["starts"].shape == (0,)
+
+
+def test_empty_op_list_is_the_background():
+    a = synthetic_compose("empty", 0)
+    got = _port_frame(a)
+    bg = [int(c * 255.0 + 0.5) for c in a["background"]] + [255]
+    assert (got == np.asarray(bg, np.uint8)).all()
+
+
+# ---- what each op does, on the plain version ------------------------------------
+
+def _one_op(op, images=(), slabs=(), starts=(), dyns=None, height=192,
+            width=384):
+    return CK.compose_tiles_plain(
+        torch.tensor(list(starts), dtype=torch.int32), tuple(images),
+        tuple(slabs), dyns or {}, ops=(op,), tiles_y=3, tiles_x=3,
+        background=(0.0, 0.0, 0.0), height=height, width=width).numpy()
+
+
+def _solid(h, w, value=32767):
+    return torch.full((h, w, 4), value, dtype=torch.int16)
+
+
+def test_img_covers_only_its_rect():
+    out = _one_op(("img", 0, 1, 2), images=[_solid(64, 128)])
+    lit = out[..., 0] == 255
+    assert lit[64:128, 256:384].all()
+    assert lit.sum() == 64 * 128
+
+
+def test_img_past_the_frame_is_cut():
+    out = _one_op(("img", 0, 2, 0), images=[_solid(64, 384)], height=150)
+    assert out.shape == (150, 384, 4)
+    assert (out[128:, :, 0] == 255).all() and (out[:128, :, 0] == 0).all()
+
+
+def test_slab_reads_from_its_start_under_the_y_clip():
+    slab = torch.zeros((512, 384, 4), dtype=torch.int16)
+    slab[100:110] = 32767           # rows 100..109 of the slab are lit
+    out = _one_op(("slab", 0, (0.0, 0.0, 384.0, 192.0)), slabs=[slab],
+                  starts=[63])
+    rows = np.nonzero(out[:, 0, 0])[0]
+    assert rows.tolist() == list(range(37, 47))      # 100 − 63 = 37
+    # pixel centres: row y is inside the clip iff cy0 <= y + 0.5 <= cy1
+    out = _one_op(("slab", 0, (0.0, 40.5, 384.0, 43.25)), slabs=[slab],
+                  starts=[63])
+    assert np.nonzero(out[:, 0, 0])[0].tolist() == [40, 41, 42]
+
+
+def test_inline_tail_is_evaluated_at_subgrid_local_x():
+    """A dot whose tables were translated to a sub-grid starting at tile
+    column 2 lands at its global position (the reference's regression for
+    global x here: tests/test_compose.py, the inline tail off column 0)."""
+    shapes = torch.zeros((8, 16))
+    shapes[0, 1:6] = torch.tensor([20.0, 30.0, 12.0, 12.0, 6.0])  # local x 20
+    shapes[0, 7:11] = 1.0
+    clips = torch.tensor([[-1e6, -1e6, 1e6, 1e6]]).repeat(8, 1)
+    bins = torch.full((3, 8), -1, dtype=torch.int32)
+    bins[0, 0] = 0
+    counts = torch.tensor([1, 0, 0], dtype=torch.int32)
+    out = _one_op(("dyni", 0, 0, 2, 1),
+                  dyns={(0, 0): (shapes, clips, bins, counts)})
+    ys, xs = np.nonzero(out[..., 0] == 255)
+    assert ys.size and xs.min() >= 256 + 20 and xs.max() < 256 + 32
+    assert ys.min() >= 30 and ys.max() < 42
+    assert (out[..., 0][:, :256] == 0).all()
+
+
+def test_prerendered_tail_blends_unscaled_at_its_column():
+    layer = torch.zeros((192, 128, 4))
+    layer[10:20, 5:9] = torch.tensor([0.5, 0.25, 0.0, 0.5])
+    out = _one_op(("dyn", 0, 1, 1), dyns={(0, 1): layer})
+    assert (out[10:20, 133:137, 0] == 128).all()
+    assert (out[10:20, 133:137, 1] == 64).all()
+    assert out[..., :3].sum() == 10 * 4 * (128 + 64)
+    # a tail whose key is absent is skipped
+    assert (_one_op(("dyn", 0, 2, 0))[..., :3] == 0).all()
+
+
+# ---- the wrapper on the CPU -------------------------------------------------------
+
+def test_wrapper_takes_plain_version_on_cpu():
+    before = CK.compose_tiles.launches
+    a = synthetic_compose("tails", 3)
+    assert np.array_equal(_port_frame(a, CK.compose_tiles), _port_frame(a))
+    assert CK.compose_tiles.launches == before  # no kernel launch on the CPU
+
+
+def test_wrapper_rejects_a_mesh_slice_and_other_devices():
+    a = compose_args_to(synthetic_compose("empty", 0), "cpu")
+    pos = [a.pop(k) for k in ("starts", "images", "slabs", "dyns")]
+    with pytest.raises(NotImplementedError, match="n_rows / row0"):
+        CK.compose_tiles(*pos, **a, n_rows=2, row0=0)
+    pos[0] = torch.empty((0,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        CK.compose_tiles(*pos, **a)
+
+
+def test_descriptors_mirror_the_ops():
+    a = compose_args_to(synthetic_compose("tails", 0), "cpu")
+    desc, keep = CK.op_descriptors(a["images"], a["slabs"], a["dyns"],
+                                   a["ops"], a["tiles_y"], torch.device("cpu"))
+    assert CK._OP_DESC.itemsize == 72
+    assert desc["kind"].tolist() == [CK._KINDS[op[0]] for op in a["ops"]]
+    img, tail, slab, pre = desc[0], desc[1], desc[2], desc[3]
+    assert (img["h"], img["w"]) == a["images"][0].shape[:2]
+    assert img["src"] == a["images"][0].data_ptr()
+    shapes, clips, bins, counts = a["dyns"][(0, 0)]
+    assert (tail["src"], tail["clips"], tail["bins"], tail["counts"]) == (
+        shapes.data_ptr(), clips.data_ptr(), bins.data_ptr(),
+        counts.data_ptr())
+    assert (tail["tx0"], tail["ts"], tail["k"]) == (1, 2, bins.shape[1])
+    assert (slab["slab"], slab["cy0"], slab["h"]) == (
+        0, 33.0, a["slabs"][0].shape[0])
+    assert (pre["tx0"], pre["ts"], pre["w"]) == (2, 1, 128)
+    assert len(keep) == 2 + 4 + 1 + 1 + 4
+    # a tail whose key is absent gets no descriptor
+    desc2, _ = CK.op_descriptors(a["images"], a["slabs"], {}, a["ops"],
+                                 a["tiles_y"], torch.device("cpu"))
+    assert desc2["kind"].tolist() == [0, 1, 0]
+
+
+@pytest.mark.parametrize("bad", ("dtype", "shape", "strided", "bins"))
+def test_descriptors_reject_what_the_kernel_does_not_take(bad):
+    a = compose_args_to(synthetic_compose("tails", 0), "cpu")
+    images, dyns = list(a["images"]), dict(a["dyns"])
+    if bad == "dtype":
+        images[0] = images[0].float()
+    elif bad == "shape":
+        images[0] = images[0][..., :3].contiguous()
+    elif bad == "strided":
+        images[0] = images[0][:, ::2]
+    else:
+        shapes, clips, bins, counts = dyns[(0, 0)]
+        dyns[(0, 0)] = (shapes, clips, bins[:-1], counts)
+    with pytest.raises(ValueError, match="compose_tiles"):
+        CK.op_descriptors(tuple(images), a["slabs"], dyns, a["ops"],
+                          a["tiles_y"], torch.device("cpu"))
+
+
+def test_params_struct_layout():
+    """The parameter block as nvcc lays it out for a 64-bit target: two
+    pointers and two ints, three floats and four ints padded to 8, one
+    pointer."""
+    assert ctypes.sizeof(CK._ComposeParams) == 64
+    assert CK._ComposeParams.starts.offset == 16
+    assert CK._ComposeParams.out.offset == 56
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(K.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setitem(CK._LIB, "lib", None)
+    monkeypatch.setattr(K, "BUILD_DIR", str(tmp_path / "_build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        CK.build()

@@ -263,29 +263,57 @@ def test_history_frame_matches_reference_frame_cache(history, history_frames,
 
 
 def test_render_scene_device_dispatch(history, monkeypatch):
-    """The frame cache by default, the packed path with
-    WGIT_FRAME_CACHE=0; oversized scenes raise before either."""
+    """Three levels: compose by default, the frame cache with
+    WGIT_FRAME_COMPOSE=0 or when compose declines (a fractional scroll
+    offset), the packed path with WGIT_FRAME_CACHE=0; oversized scenes
+    raise before any of them."""
+    from whisper_git_tpu_torch.render import compose as PC
+
     _, _, _, port, _ = history
-    scene = synthetic_scene("volatile", 0, port.regular,
-                            port.regular.texture.shape[0])
+    fractional = synthetic_scene("volatile", 0, port.regular,
+                                 port.regular.texture.shape[0])
+    assert fractional.windows[0].dy != int(fractional.windows[0].dy)
+    scene = dataclasses.replace(fractional, windows=[
+        dataclasses.replace(w, dy=float(int(w.dy)))
+        for w in fractional.windows])
     font = port.font_tex_device()
     atlas = torch.from_numpy(scene.image_atlas)
     calls = []
-    real = PF.render_frame_device
+    real_frame, real_composed = (PF.render_frame_device,
+                                 PC.render_frame_composed)
     monkeypatch.setattr(PF, "render_frame_device",
-                        lambda *a: calls.append(1) or real(*a))
+                        lambda *a: calls.append("cache") or real_frame(*a))
+    monkeypatch.setattr(
+        PC, "render_frame_composed",
+        lambda *a: calls.append("compose") or real_composed(*a))
     monkeypatch.delenv("WGIT_FRAME_CACHE", raising=False)
+    monkeypatch.delenv("WGIT_FRAME_COMPOSE", raising=False)
+    composed = P.render_scene_device(scene, font, atlas)
+    assert calls == ["compose"]
+    monkeypatch.setenv("WGIT_FRAME_COMPOSE", "0")
     a = P.render_scene_device(scene, font, atlas)
-    assert calls == [1]
+    assert calls == ["compose", "cache"]
     monkeypatch.setenv("WGIT_FRAME_CACHE", "0")
     b = P.render_scene_device(scene, font, atlas)
-    assert calls == [1]
+    assert calls == ["compose", "cache"]
     assert torch.equal(a, b)
-    big = dataclasses.replace(scene, width=P.MAX_PACKED_PX + 1)
+    assert int((composed.int() - b.int()).abs().max()) <= 1
+    # A fractional offset under the default: compose is asked, declines,
+    # and the frame is the frame cache's, bit for bit the packed path's.
+    del calls[:]
+    want = P.render_scene_device(fractional, font, atlas)
     monkeypatch.delenv("WGIT_FRAME_CACHE")
+    monkeypatch.delenv("WGIT_FRAME_COMPOSE")
+    assert PC.render_frame_composed(fractional, font, atlas) is None
+    del calls[:]
+    got = P.render_scene_device(fractional, font, atlas)
+    assert calls == ["compose", "cache"]
+    assert torch.equal(got, want)
+    big = dataclasses.replace(scene, width=P.MAX_PACKED_PX + 1)
+    del calls[:]
     with pytest.raises(NotImplementedError):
         P.render_scene_device(big, font, atlas)
-    assert calls == [1]
+    assert calls == []
 
 
 def test_render_frame_device_defaults_to_the_scenes_image_atlas():

@@ -89,7 +89,8 @@ class _Refuse(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, _Refuse())
 import chip_smoke                       # imports nothing of the port yet
 from whisper_git_tpu_torch.host import main as cli
-from whisper_git_tpu_torch.render import frame, blocks_kernel  # noqa: F401
+from whisper_git_tpu_torch.render import (blocks_kernel, compose,  # noqa: F401
+                                          compose_kernel, frame)
 repo = chip_smoke.build_history_repo(sys.argv[1], 20)
 rc = cli.main(["--screenshot", sys.argv[2], "--size", "640x400", "--repo",
                repo, "--device", "cpu"])
@@ -101,14 +102,15 @@ sys.exit(rc if not loaded else 3)
 
 def test_cli_renders_with_the_reference_refused(tmp_path):
     """A process in which every import of the JAX package, JAX, Pillow and
-    matplotlib raises imports `chip_smoke`, the port's CLI and the frame
-    cache, and renders a screenshot on the CPU through the default path."""
+    matplotlib raises imports `chip_smoke`, the port's CLI, the frame
+    cache and compose, and renders a screenshot on the CPU through the
+    default path."""
     script = tmp_path / "refusing_run.py"
     script.write_text(REFUSING_RUN)
     out = tmp_path / "shot.png"
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_PLATFORMS", "WGIT_DEVICE", "XLA_FLAGS",
-                        "WGIT_FRAME_CACHE")}
+                        "WGIT_FRAME_CACHE", "WGIT_FRAME_COMPOSE")}
     env.update(PYTHONPATH=ROOT, WGIT_SKIP_AVATARS="1",
                XDG_STATE_HOME=str(tmp_path / "state"),
                XDG_CACHE_HOME=str(tmp_path / "cache"),

@@ -1,0 +1,332 @@
+"""The compose kernel (K3): a CUDA kernel for Hopper and its plain PyTorch
+version.
+
+Replaces `whisper_git_tpu/render/pallas_compose.py::compose_tiles` (the
+Pallas TPU kernel of the layer-image compose path) together with its
+epilogue `pallas_raster.assemble_u8`.
+
+Blends the plan's layers in z order over an opaque background into the
+(height, width, 4) u8 frame: f32 accumulate, `src + fb·(1 − a)` a layer,
+one quantize clip(x·255 + 0.5), alpha 255. The layouts are the port's own:
+
+  images  tuple of (h, w, 4) i16 interleaved chrome layers, fixed point at
+          1/32767, each cut to a tile-aligned rect whose tile offset rides
+          in its op; a layer ends at its pixel extent (the frame's ragged
+          edge), and what lies beyond counts as transparent
+  slabs   tuple of (slab_h, w, 4) i16 scroll slabs; the frame shows rows
+          [start, start + height) of a slab
+  starts  (n_slabs,) i32, the first slab row of this frame, a slab
+  dyns    dict (li, ci) -> (shapes f32 (cap, 16), shape_clips f32 (cap, 4),
+          bins i32 (tiles_y·ts, k), counts i32 (tiles_y·ts,)) for a shape
+          tail rasterized inline (op "dyni"), in the coordinates of the
+          sub-grid of tile columns [c0, c0 + ts); or an (h, w, 4) f32
+          premultiplied layer pre-rendered over that sub-grid (op "dyn")
+  ops     z-ordered tuple of ("img", i, ty0, tx0), ("slab", j, clip),
+          ("dyni", li, ci, c0, ts), ("dyn", li, ci, c0); a "dyni" or "dyn"
+          whose key is not in `dyns` is skipped
+
+`compose_tiles` is the entry point. Tensors on the CPU take
+`compose_tiles_plain`; CUDA tensors launch the kernel in
+`csrc/compose_tiles.cu` (built with nvcc on first use, loaded with ctypes)
+or raise. `compose_tiles.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import raster_kernel as K
+
+TILE_H = K.TILE_H
+TILE_W = K.TILE_W
+
+I16_SCALE = 32767.0
+_I16_INV = np.float32(1.0 / 32767.0)
+
+_KINDS = {"img": 0, "slab": 1, "dyni": 2, "dyn": 3}
+# Bytes the kernel loads at once from an op's source: an i16 or f32 pixel,
+# or one f32 of a shape table.
+_SRC_ALIGN = {"img": 8, "slab": 8, "dyni": 4, "dyn": 16}
+
+
+# ---------------------------------------------------------------------------
+# Plain version (PyTorch ops; the CPU path and the kernel's reference).
+# ---------------------------------------------------------------------------
+
+def _over_region(fb, y0: int, x0: int, src):
+    """Blend premultiplied `src` (h, w, 4) f32 over fb (H, W, 3) at pixel
+    offset (y0, x0), cut to the frame."""
+    h = min(src.shape[0], fb.shape[0] - y0)
+    w = min(src.shape[1], fb.shape[1] - x0)
+    if h <= 0 or w <= 0:
+        return
+    src = src[:h, :w]
+    region = fb[y0:y0 + h, x0:x0 + w]
+    fb[y0:y0 + h, x0:x0 + w] = src[..., :3] + region * (1.0 - src[..., 3:])
+
+
+def _dequant_i16(layer: torch.Tensor) -> torch.Tensor:
+    return layer.float() * torch.tensor(_I16_INV, device=layer.device)
+
+
+def compose_tiles_plain(starts, images, slabs, dyns, *, ops: tuple,
+                        tiles_y: int, tiles_x: int, background: tuple,
+                        height: int, width: int) -> torch.Tensor:
+    """The plain version of `compose_tiles`: the same ops in the same
+    order on whole-frame tensors (a region blend for "img" and "dyn", a row
+    slice for "slab", the plain shape command of `raster_kernel` on the
+    sub-grid's own tile grid for "dyni")."""
+    device = starts.device
+    fb = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    fb[:] = torch.tensor([float(c) for c in background[:3]],
+                         dtype=torch.float32, device=device)
+    py = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    for op in ops:
+        if op[0] == "img":
+            _, i, ty0, tx0 = op
+            _over_region(fb, ty0 * TILE_H, tx0 * TILE_W,
+                         _dequant_i16(images[i]))
+        elif op[0] == "slab":
+            _, j, clip = op
+            slab = slabs[j]
+            start = int(starts[j])
+            lo = max(start, 0)
+            hi = min(start + height, slab.shape[0])
+            if hi <= lo:
+                continue
+            y0 = lo - start
+            ymask = ((py >= float(clip[1])) & (py <= float(clip[3]))
+                     ).float()[y0:y0 + hi - lo, None, None]
+            _over_region(fb, y0, 0, _dequant_i16(slab[lo:hi]) * ymask)
+        elif op[0] == "dyni":
+            entry = dyns.get((op[1], op[2]))
+            if entry is None:
+                continue
+            shapes, sclips, bins, counts = entry
+            c0, ts = op[3], op[4]
+            x0 = c0 * TILE_W
+            sub_w = min(ts * TILE_W, width - x0)
+            if sub_w <= 0:
+                continue
+            grid = K._TileGrid(tiles_y, ts, device)
+            canvas = torch.zeros((tiles_y * TILE_H, ts * TILE_W, 4),
+                                 dtype=torch.float32, device=device)
+            canvas[:height, :sub_w, :3] = fb[:, x0:x0 + sub_w]
+            canvas[..., 3] = 1.0
+            grid.fb = canvas.reshape(tiles_y, TILE_H, ts, TILE_W, 4).permute(
+                0, 2, 4, 1, 3).reshape(tiles_y * ts, 4, TILE_H, TILE_W
+                                       ).contiguous()
+            grid.scan(bins, K.class_step(0, (shapes, sclips), None, None),
+                      hi=counts)
+            fb[:, x0:x0 + sub_w] = grid.image(height, sub_w)[..., :3]
+        else:
+            layer = dyns.get((op[1], op[2]))
+            if layer is None:
+                continue
+            _over_region(fb, 0, op[3] * TILE_W, layer)
+    out = torch.empty((height, width, 4), dtype=torch.uint8, device=device)
+    out[..., :3] = K.quantize_u8(fb)
+    out[..., 3] = 255
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel: build, bind, launch.
+# ---------------------------------------------------------------------------
+
+# Mirror of `ComposeOp` in csrc/compose_tiles.cu (pointers as u64).
+_OP_DESC = np.dtype([("src", "<u8"), ("clips", "<u8"), ("bins", "<u8"),
+                     ("counts", "<u8"), ("kind", "<i4"), ("h", "<i4"),
+                     ("w", "<i4"), ("ty0", "<i4"), ("tx0", "<i4"),
+                     ("ts", "<i4"), ("k", "<i4"), ("slab", "<i4"),
+                     ("cy0", "<f4"), ("cy1", "<f4")])
+
+
+class _ComposeParams(ctypes.Structure):
+    """Mirror of `ComposeParams` in csrc/compose_tiles.cu."""
+    _fields_ = [("ops", ctypes.c_void_p), ("n_ops", ctypes.c_int),
+                ("n_starts", ctypes.c_int), ("starts", ctypes.c_void_p),
+                ("bg_r", ctypes.c_float), ("bg_g", ctypes.c_float),
+                ("bg_b", ctypes.c_float),
+                ("tiles_x", ctypes.c_int), ("tiles_y", ctypes.c_int),
+                ("height", ctypes.c_int), ("width", ctypes.c_int),
+                ("out", ctypes.c_void_p)]
+
+
+_LIB = K.new_library_state()
+_WHO = "compose_tiles"
+
+
+def _bind(lib) -> None:
+    lib.compose_tiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_void_p]
+    lib.compose_tiles_launch.restype = ctypes.c_int
+    lib.compose_tiles_error_string.argtypes = [ctypes.c_int]
+    lib.compose_tiles_error_string.restype = ctypes.c_char_p
+    for fn, want, what in (
+            (lib.compose_tiles_params_size, ctypes.sizeof(_ComposeParams),
+             "ComposeParams"),
+            (lib.compose_tiles_desc_size, _OP_DESC.itemsize, "ComposeOp")):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"{what} is {fn()} bytes in C, {want} in "
+                               "Python")
+
+
+def build() -> dict:
+    """Build and load K3's library (see `raster_kernel.build_library`)."""
+    return K.build_library(_LIB, "compose_tiles.cu", _bind)
+
+
+def _check_layer(t, label: str, dtype, device):
+    K.check_tensor(t, label, dtype, device, 3, _WHO)
+    if t.shape[2] != 4 or t.shape[0] == 0 or t.shape[1] == 0:
+        raise ValueError(f"{_WHO}: {label} is {tuple(t.shape)}, expected a "
+                         "non-empty (h, w, 4)")
+
+
+def op_descriptors(images, slabs, dyns, ops: tuple, tiles_y: int,
+                   device) -> tuple[np.ndarray, list]:
+    """The flat z-ordered descriptor array of `ops`, and every tensor it
+    points at (to be kept alive until the launch is enqueued)."""
+    rows, keep = [], []
+    zero = dict.fromkeys(_OP_DESC.names, 0)
+    for oi, op in enumerate(ops):
+        kind = op[0]
+        label = f"op {oi} {kind}"
+        if kind not in _KINDS:
+            raise ValueError(f"{_WHO}: {label}: unknown kind")
+        row = dict(zero, kind=_KINDS[kind])
+        if kind == "img":
+            _, i, ty0, tx0 = op
+            layer = images[i]
+            _check_layer(layer, label, torch.int16, device)
+            if ty0 < 0 or tx0 < 0:
+                raise ValueError(f"{_WHO}: {label} has a negative tile "
+                                 "offset")
+            row.update(src=layer.data_ptr(), h=layer.shape[0],
+                       w=layer.shape[1], ty0=ty0, tx0=tx0)
+            keep.append(layer)
+        elif kind == "slab":
+            _, j, clip = op
+            slab = slabs[j]
+            _check_layer(slab, label, torch.int16, device)
+            row.update(src=slab.data_ptr(), h=slab.shape[0],
+                       w=slab.shape[1], slab=j, cy0=float(clip[1]),
+                       cy1=float(clip[3]))
+            keep.append(slab)
+        elif kind == "dyni":
+            entry = dyns.get((op[1], op[2]))
+            if entry is None:
+                continue
+            shapes, sclips, bins, counts = entry
+            c0, ts = op[3], op[4]
+            K.check_tensor(shapes, f"{label} shapes", torch.float32, device,
+                           2, _WHO)
+            K.check_tensor(sclips, f"{label} clips", torch.float32, device,
+                           2, _WHO)
+            K.check_tensor(bins, f"{label} bins", torch.int32, device, 2,
+                           _WHO)
+            K.check_tensor(counts, f"{label} counts", torch.int32, device,
+                           1, _WHO)
+            n = shapes.shape[0]
+            if tuple(shapes.shape) != (n, 16) \
+                    or tuple(sclips.shape) != (n, 4) \
+                    or bins.shape[0] != tiles_y * ts \
+                    or counts.shape[0] != tiles_y * ts or c0 < 0 or ts <= 0:
+                raise ValueError(
+                    f"{_WHO}: {label}: shapes {tuple(shapes.shape)}, clips "
+                    f"{tuple(sclips.shape)}, bins {tuple(bins.shape)}, "
+                    f"counts {tuple(counts.shape)} for a {tiles_y}x{ts} "
+                    f"sub-grid at column {c0}")
+            row.update(src=shapes.data_ptr(), clips=sclips.data_ptr(),
+                       bins=bins.data_ptr(), counts=counts.data_ptr(),
+                       tx0=c0, ts=ts, k=bins.shape[1])
+            keep += [shapes, sclips, bins, counts]
+        else:
+            layer = dyns.get((op[1], op[2]))
+            if layer is None:
+                continue
+            _check_layer(layer, label, torch.float32, device)
+            c0 = op[3]
+            row.update(src=layer.data_ptr(), h=layer.shape[0],
+                       w=layer.shape[1], tx0=c0,
+                       ts=-(-layer.shape[1] // TILE_W))
+            keep.append(layer)
+        if row["src"] % _SRC_ALIGN[kind]:
+            raise ValueError(f"{_WHO}: {label} is not aligned to "
+                             f"{_SRC_ALIGN[kind]} bytes")
+        rows.append(tuple(row[name] for name in _OP_DESC.names))
+    return np.array(rows, dtype=_OP_DESC), keep
+
+
+def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
+            height, width) -> torch.Tensor:
+    device = starts.device
+    K.check_frame_fits(height, width, tiles_y, tiles_x, _WHO)
+    K.check_tensor(starts, "starts", torch.int32, device, 1, _WHO)
+    if any(op[0] == "slab" and not 0 <= op[1] < starts.shape[0]
+           for op in ops):
+        raise ValueError(f"{_WHO}: a slab op has no entry in starts "
+                         f"({starts.shape[0]})")
+    build()
+    lib = _LIB["lib"]
+    desc, keep = op_descriptors(images, slabs, dyns, ops, tiles_y, device)
+    # One small upload a frame; at least one row so the pointer is valid.
+    desc_dev = torch.from_numpy(
+        np.frombuffer(desc.tobytes() or bytes(_OP_DESC.itemsize),
+                      np.uint8).copy()).to(device)
+    p = _ComposeParams()
+    p.ops = desc_dev.data_ptr()
+    p.n_ops = len(desc)
+    p.n_starts = starts.shape[0]
+    p.starts = starts.data_ptr()
+    p.bg_r, p.bg_g, p.bg_b = (float(c) for c in background[:3])
+    p.tiles_x, p.tiles_y = tiles_x, tiles_y
+    p.height, p.width = height, width
+    out = torch.empty((height, width, 4), device=device, dtype=torch.uint8)
+    p.out = out.data_ptr()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.compose_tiles_launch(ctypes.byref(p), tiles_y * tiles_x,
+                                      stream)
+    if rc != 0:
+        raise RuntimeError("compose_tiles kernel launch failed: "
+                           + lib.compose_tiles_error_string(rc).decode())
+    compose_tiles.launches += 1
+    # The layers, tails, starts and descriptors were alive up to here; the
+    # allocator hands their memory out again only to later work on this
+    # stream, which runs after the kernel.
+    del keep, desc_dev
+    return out
+
+
+def compose_tiles(starts: torch.Tensor, images: tuple, slabs: tuple,
+                  dyns: dict, *, ops: tuple, tiles_y: int, tiles_x: int,
+                  background: tuple, height: int, width: int,
+                  n_rows: int | None = None, row0=None) -> torch.Tensor:
+    """Blend the plan's layers (see the module docstring) on `starts`'
+    device → the (height, width, 4) u8 frame. On the CPU this is
+    `compose_tiles_plain`; on a CUDA device it launches the kernel (and
+    counts the launch in `compose_tiles.launches`) or raises. `n_rows` /
+    `row0` (a slice of tile rows for a device mesh) are not ported."""
+    if n_rows is not None or row0 is not None:
+        raise NotImplementedError(
+            f"{_WHO}: n_rows / row0 (a mesh slice of tile rows) are not "
+            "ported")
+    if starts.device.type == "cpu":
+        return compose_tiles_plain(starts, images, slabs, dyns, ops=ops,
+                                   tiles_y=tiles_y, tiles_x=tiles_x,
+                                   background=background, height=height,
+                                   width=width)
+    if starts.device.type != "cuda":
+        raise ValueError(f"{_WHO}: unsupported device {starts.device}")
+    return _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x,
+                   background, height, width)
+
+
+compose_tiles.launches = 0

@@ -598,23 +598,30 @@ def render_scene_device(scene: Scene, font_tex: torch.Tensor,
     readback). font_tex: (FH, FW) u8; image_atlas: (AH, AW, 4) u8, by
     default the scene's own.
 
-    Default path: the device-resident frame cache (render/frame.py —
-    content-addressed chrome, window pair bins gathered on the device, the
-    blocks kernel). WGIT_FRAME_CACHE=0 drops to the single-shot packed
-    path below; the two are bit-identical. The reference's default, the
-    layer-image compose pipeline on top of the frame cache, is not ported,
-    so this is the reference's WGIT_FRAME_COMPOSE=0 configuration."""
+    Default path: the layer-image compose pipeline (render/compose.py:
+    cached chrome layers and scroll slabs, one blend by the compose
+    kernel; within 1 u8 of the packed path). WGIT_FRAME_COMPOSE=0, or a
+    scene compose declines (a fractional scroll offset), drops to the
+    device-resident frame cache (render/frame.py: content-addressed
+    chrome, window pair bins gathered on the device, the blocks kernel);
+    WGIT_FRAME_CACHE=0 to the single-shot packed path below. The frame
+    cache and the packed path are bit-identical."""
+    from . import compose as C
     from . import frame as F
 
     if max(scene.width, scene.height) > MAX_PACKED_PX:
         raise NotImplementedError(
             f"scene {scene.width}x{scene.height} exceeds the packed path's "
             f"{MAX_PACKED_PX} px; the unquantized f32 path is not ported")
-    if F.frame_cache_enabled():
-        return F.render_frame_device(scene, font_tex, image_atlas)
     device = font_tex.device
     if image_atlas is None:
         image_atlas = torch.from_numpy(scene.image_atlas).to(device)
+    if F.frame_cache_enabled():
+        if C.compose_enabled():
+            img = C.render_frame_composed(scene, font_tex, image_atlas)
+            if img is not None:
+                return img
+        return F.render_frame_device(scene, font_tex, image_atlas)
     fused, meta, tiles_y, tiles_x, win_list = pack_scene(scene)
     wins = tuple(_device_window_blob(uid, caps, blob, device)
                  for uid, caps, blob in win_list)

@@ -17,6 +17,10 @@ Kinds:
   windows2  two scroll windows on one layer, spliced a third and two
           thirds into its chrome stream, so that the frame cache cuts each
           chrome table into three z-segments; a volatile tail on top
+
+`synthetic_compose` makes seeded op lists for the compose kernel instead:
+random premultiplied layers, slabs, an inline shape tail and a pre-rendered
+tail, in the layouts `render/compose_kernel.py` documents.
 """
 
 from __future__ import annotations
@@ -185,3 +189,117 @@ def synthetic_scene(kind: str, seed: int, regular, bold_v_offset: int,
             layers.append(thumb)
     return Scene(layers=layers, width=w, height=h, background=BACKGROUND,
                  image_atlas=image_atlas, windows=windows)
+
+
+# ---------------------------------------------------------------------------
+# Op lists for the compose kernel.
+# ---------------------------------------------------------------------------
+
+COMPOSE_CASES = ("layers", "tails", "empty", "windowless")
+
+
+def _premultiplied(rng, h: int, w: int, cover: float) -> np.ndarray:
+    """A random premultiplied RGBA layer (h, w, 4) f32 in [0, 1], rgb ≤ a,
+    transparent outside a share `cover` of 8×8 px cells."""
+    cells = rng.random((-(-h // 8), -(-w // 8))) < cover
+    mask = np.repeat(np.repeat(cells, 8, axis=0), 8, axis=1)[:h, :w]
+    a = rng.uniform(0.0, 1.0, (h, w)).astype(np.float32) * mask
+    rgb = rng.uniform(0.0, 1.0, (h, w, 3)).astype(np.float32) * a[..., None]
+    return np.concatenate([rgb, a[..., None]], axis=2)
+
+
+def _i16_layer(rng, h: int, w: int, cover: float = 0.6) -> np.ndarray:
+    q = np.clip(np.rint(_premultiplied(rng, h, w, cover) * 32767.0),
+                -32767.0, 32767.0)
+    return q.astype(np.int16)
+
+
+def synthetic_compose(case: str, seed: int, width: int = 384,
+                      height: int = 300) -> dict:
+    """Seeded arguments of `compose_kernel.compose_tiles`, as numpy arrays:
+    {"starts", "images", "slabs", "dyns", "ops", "tiles_y", "tiles_x",
+    "background", "height", "width"}. Between them the cases hold every op
+    kind: "layers" a full-frame layer, a rect that starts at tile (1, 1)
+    and ends on the frame's ragged last tile row, and three slabs (a start
+    on a tile boundary, one off it, one at slab_h − height) under y clips
+    that cut tiles; "tails" an inline shape tail and a pre-rendered tail
+    at tile columns ≥ 1 between layers; "empty" no op at all; "windowless"
+    layers and a tail with no slab."""
+    from ..render import rasterizer as R
+
+    TILE_H, TILE_W = R.TILE_H, R.TILE_W
+    if case not in COMPOSE_CASES:
+        raise ValueError(f"unknown case {case!r}; one of {COMPOSE_CASES}")
+    rng = np.random.default_rng(seed)
+    tiles_y, tiles_x = -(-height // TILE_H), -(-width // TILE_W)
+    if tiles_y < 3 or tiles_x < 3:
+        raise ValueError("synthetic_compose needs at least 3x3 tiles")
+    slab_h = -(-(height + 2 * 192) // TILE_H) * TILE_H
+    images, slabs, starts, dyns, ops = [], [], [], {}, []
+
+    def img(ty0: int, tx0: int, ty1: int, tx1: int, cover: float = 0.6):
+        h = min(ty1 * TILE_H, height) - ty0 * TILE_H
+        w = min(tx1 * TILE_W, width) - tx0 * TILE_W
+        ops.append(("img", len(images), ty0, tx0))
+        images.append(_i16_layer(rng, h, w, cover))
+
+    def slab(start: int, cy0: float, cy1: float):
+        ops.append(("slab", len(slabs), (0.0, cy0, float(width), cy1)))
+        slabs.append(_i16_layer(rng, slab_h, width, 0.5))
+        starts.append(start)
+
+    def dyni(li: int, c0: int, ts: int, n: int):
+        sub_w = min(ts * TILE_W, width - c0 * TILE_W)
+        shapes, clips = _shapes(rng, n, sub_w, height)
+        boxes = R._intersect_boxes(R._shape_boxes(shapes, n), clips)
+        bins, _ = R._bin_indexed(boxes, np.arange(n, dtype=np.int64),
+                                 tiles_y, ts, 32)
+        dyns[(li, 0)] = (shapes, clips, bins,
+                         (bins >= 0).sum(axis=1).astype(np.int32))
+        ops.append(("dyni", li, 0, c0, ts))
+
+    def dyn(li: int, ci: int, c0: int, ts: int):
+        sub_w = min(ts * TILE_W, width - c0 * TILE_W)
+        dyns[(li, ci)] = _premultiplied(rng, height, sub_w, 0.3)
+        ops.append(("dyn", li, ci, c0))
+
+    if case == "layers":
+        img(0, 0, tiles_y, tiles_x)
+        slab(64, 40.25, height - 30.0)
+        img(1, 1, tiles_y, tiles_x, 0.8)
+        slab(37, 70.0, 200.75)
+        slab(slab_h - height, 10.5, float(height))
+    elif case == "tails":
+        img(0, 0, tiles_y, tiles_x, 0.4)
+        dyni(0, 1, 2, 12)
+        slab(101, 33.0, height - 47.25)
+        dyn(0, 1, 2, 1)
+        img(0, 1, 2, 2, 0.9)
+        dyni(1, tiles_x - 1, 1, 5)
+    elif case == "windowless":
+        img(0, 0, 1, tiles_x)
+        img(1, 0, tiles_y, 2, 0.7)
+        dyni(0, 1, 1, 6)
+        dyn(1, 2, 0, tiles_x)
+    return {"starts": np.asarray(starts, np.int32), "images": images,
+            "slabs": slabs, "dyns": dyns, "ops": tuple(ops),
+            "tiles_y": tiles_y, "tiles_x": tiles_x,
+            "background": BACKGROUND[:3], "height": height, "width": width}
+
+
+def compose_args_to(args: dict, device) -> dict:
+    """`synthetic_compose`'s arrays as tensors on `device`: the keyword
+    arguments of `compose_tiles` but for `starts`, `images`, `slabs` and
+    `dyns`, which it takes by position."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    out = dict(args)
+    out["starts"] = t(args["starts"])
+    out["images"] = tuple(t(a) for a in args["images"])
+    out["slabs"] = tuple(t(a) for a in args["slabs"])
+    out["dyns"] = {k: tuple(t(a) for a in v) if isinstance(v, tuple)
+                   else t(v) for k, v in args["dyns"].items()}
+    return out
