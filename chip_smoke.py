@@ -16,13 +16,18 @@ each fatal on failure:
               card, on seeded synthetic scenes of every kind
               (tools/synthetic.py: window scenes give window blocks, one
               has a volatile tail, one cuts chrome into three segments);
-              K2 in both output modes (u8 frame, f32 transparent layer);
+              K2 in every output mode (u8 frame, f32 and i16 transparent
+              layer, each also cut to a tile rect; the i16 layers 0 values
+              from the plain version's);
               K3 against its plain version on seeded op lists that hold
               every op kind (a layer rect off the origin ending on the
               ragged last tile row, slabs started on and off a tile
-              boundary and at slab_h - height, y clips that cut tiles, an
+              boundary and at slab_h - height, y clips that cut tiles, odd
+              widths that put no pixel pair on a 16-byte address, an
               inline and a pre-rendered tail at tile columns >= 1, no op
-              at all, no slab); a synthetic scene with a glyph tail through
+              at all, no slab), and on an op list over the cap of the
+              descriptors that ride in the launch (the device-array route);
+              a synthetic scene with a glyph tail through
               compose (K2 pre-renders the tail for K3) within 1 u8 of K1's
               frame
   4. slice    the history view of a generated repository at 1280x800
@@ -43,34 +48,51 @@ each fatal on failure:
               of the packed path's, under 2 % of values differing; the
               layer caches untouched between two offsets of one scroll
               bucket; each kernel against its plain version on a few
-              offsets
+              offsets; every cached layer of a plan build (the slabs at
+              1216x1280, the chrome groups over their ink's tile rects) as
+              K2 writes it, i16, 0 values from the plain version's
   5. cli      `python -m whisper_git_tpu_torch --screenshot` writes a
               1280x800 PNG (through compose)
   6. timings  each kernel and its plain version at the history view (CUDA
-              events, median, taken in turns) beside its bound; the three
+              events around the wrapper, median, taken in turns, and the
+              kernel alone from the profiler) beside its bound; K2 at the
+              slab's size beside the former route (f32 layer, then the
+              quantize in torch ops); K2's column split and K3's row split
+              by measurement; K3 after a flush of the L2 and with an op
+              list over the cap; the three
               paths' end-to-end frame time over the same integer offsets
               (host clock to a synchronize, median; first and plan-rebuild
               frames apart) and each stage of a frame alone; each path's
-              upload per frame; device events a frame and the device's
-              busy share over 20 frames of compose and of the frame cache
-              (torch.profiler)
+              upload per frame; device events and host-to-device copies a
+              frame and the device's busy share over 20 frames of compose
+              and of the frame cache, and the device events of one plan
+              build (torch.profiler): a steady composed frame copies at
+              most its blob, and no quantize pass follows a layer build
 
 Tolerances (the reference's own): shape-only scenes within 1 u8; scenes
 with glyphs or images at most 8 u8 with more than 2 u8 on under 1 % of
 values; the empty scene within 1 u8 of the background; an f32 layer the
-same in units of 1/255; the compose kernel within 1 u8 of its plain
-version (0 expected: the same f32 arithmetic, no multiply-add contracted).
+same in units of 1/255; an i16 layer bit for bit the quantized values of
+the kernel's own f32 layer, and from the plain version's 0 counts on shapes
+and at most 1 count where glyphs or images are resampled; the compose
+kernel within 1 u8 of its plain version (0 expected: the same f32
+arithmetic, no multiply-add contracted).
 
 A kernel's bound is the larger of two times: the bytes it must move (its
 command tables, bins and bounds, the atlas cells its bins reference and
 the frame it writes, each once) over 3.35 TB/s, and the arithmetic of
-this run's bin entries (entries x 8192 pixels x operations per pixel of
-the entry's class) over 67 TFLOP/s, the H100's f32 rate outside the
-tensor cores. The compose kernel's bytes are the frame written, 8 B a pixel
-of every chrome layer and of every slab's visible rows, 16 B a pixel of a
-pre-rendered tail, the inline tails' tables and bins, the starts and the
-descriptors; its arithmetic 11 operations a pixel a blended i16 layer, 7
-an f32 one, and the inline tails' bin entries as above.
+this run's bin entries (for each entry the pixels of its command's extent
+inside its tile and the frame, `raster_kernel.command_extents`, x
+operations per pixel of the entry's class) over 67 TFLOP/s, the H100's f32
+rate outside the tensor cores. Outside its extent a command's coverage is
+exactly 0, so no implementation has to compute there; the former count
+(8192 pixels an entry) is logged beside the new one. The compose kernel's
+bytes are the frame written, 8 B a pixel of every chrome layer and of every
+slab's visible rows, 16 B a pixel of a pre-rendered tail, the inline tails'
+tables and bins, the starts and the descriptors; its arithmetic 11
+operations a pixel a blended i16 layer, 7 an f32 one, and the inline tails'
+bin entries as above. The script fails if a kernel reads faster than its
+bound.
 
 Prints the card's line, a JSON line of kernel results, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, on any
@@ -101,6 +123,9 @@ COMPOSE_OFFSETS = (0.0, 13.0, 17.0, 64.0) + tuple(
 COMPOSE_COMPARE = (0.0, 13.0, 17.0, 64.0, 119.0, 238.0, 391.0)
 COMPOSE_PLAIN_OFFSETS = (0.0, 64.0, 238.0)
 COMPOSE_SYNTH_SIZE = (640, 400)   # 5 x 7 tiles, the last tile row ragged
+# Odd widths: layers whose pixel pairs lie on no 16-byte addresses, and a
+# frame whose last pair is half a pair.
+COMPOSE_SYNTH_ODD = (421, 301)
 TIMED_KERNEL_RUNS = 50
 TIMED_PLAIN_RUNS = 5
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -188,15 +213,25 @@ TILE_PIXELS = 64 * 128
 CELL_BYTES = (0, 64 * 64, 64 * 64 * 4)  # atlas cell of a glyph, an image
 
 
-def kernel_bound(torch, runs, out) -> tuple[float, str, dict]:
+def entry_pixels(torch, K, ci, tables, bins, live, tiles_x, height, width):
+    """For the live slots of a (T, k) bins table: → (tile index (M,), pixels
+    of each entry's extent inside its tile and the frame (M,) i64)."""
+    t_idx, k_idx = torch.nonzero(live, as_tuple=True)
+    ext = K.command_extents(ci, tables)[bins[t_idx, k_idx].long()]
+    return t_idx, K.extent_tile_pixels(ext, t_idx, tiles_x, height, width)
+
+
+def kernel_bound(torch, K, runs, out, tiles_x) -> tuple[float, str, dict]:
     """The least time the card could take for one launch. `runs` lists
     what the launch walks: (class, tables, bins, lo, hi), lo and hi None
     where the whole row counts. → (bound ms, "bytes" | "operations",
-    {"entries": per class, "bytes": moved, "busiest_tile_ms",
+    {"entries": per class, "pixels": of their extents per class, "bytes":
+    moved, "old_ms": the bound at 8192 pixels an entry, "busiest_tile_ms",
     "busiest_share"})."""
-    entries = [0, 0, 0]
-    tile_flops = 0   # per tile: the arithmetic its own bins rows cost
+    entries, pixels = [0, 0, 0], [0, 0, 0]
+    tile_flops = None   # per tile: the arithmetic its own bins rows cost
     seen, n_bytes = set(), out.numel() * out.element_size()
+    height, width = out.shape[0], out.shape[1]
 
     def once(t):
         nonlocal n_bytes
@@ -211,25 +246,31 @@ def kernel_bound(torch, runs, out) -> tuple[float, str, dict]:
             live &= k >= lo[:, None]
         if hi is not None:
             live &= k < hi[:, None]
-        entries[ci] += int(live.sum().item())
-        tile_flops = tile_flops + live.sum(dim=1) * (
-            TILE_PIXELS * FLOPS_PER_PIXEL[ci])
+        t_idx, n_px = entry_pixels(torch, K, ci, tables, bins, live, tiles_x,
+                                   height, width)
+        entries[ci] += int(t_idx.numel())
+        pixels[ci] += int(n_px.sum().item())
+        if tile_flops is None:
+            tile_flops = torch.zeros(bins.shape[0], dtype=torch.int64,
+                                     device=bins.device)
+        tile_flops.index_add_(0, t_idx, n_px * FLOPS_PER_PIXEL[ci])
         for t in (*tables, bins, lo, hi):
             once(t)
         if ci and bool(live.any()):
             uv = tables[0][bins[live].long()][:, 4:6]
             n_bytes += int(torch.unique(uv, dim=0).shape[0]) * CELL_BYTES[ci]
-    flops = sum(n * TILE_PIXELS * f for n, f in zip(entries,
-                                                    FLOPS_PER_PIXEL))
+    flops = sum(n * f for n, f in zip(pixels, FLOPS_PER_PIXEL))
+    old_flops = sum(n * TILE_PIXELS * f for n, f in zip(entries,
+                                                        FLOPS_PER_PIXEL))
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
-    # One CTA rasterizes a tile on one of the card's 132 SMs, so a launch
-    # cannot end before its busiest tile has, at one SM's share of the peak.
-    busiest = (int(tile_flops.max().item())
-               if torch.is_tensor(tile_flops) else 0)
+    # A tile's strips run on at most four of the card's 132 SMs.
+    busiest = int(tile_flops.max().item()) if tile_flops is not None else 0
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations",
-            {"entries": tuple(entries), "bytes": n_bytes,
+            {"entries": tuple(entries), "pixels": tuple(pixels),
+             "bytes": n_bytes,
+             "old_ms": max(t_bytes, old_flops / PEAK_F32_FLOPS * 1e3),
              "busiest_tile_ms": busiest / (PEAK_F32_FLOPS / 132) * 1e3,
              "busiest_share": busiest / flops if flops else 0.0})
 
@@ -238,16 +279,17 @@ BLEND_FLOPS_I16 = 11   # 4 scales, 1 - a, three multiply-adds
 BLEND_FLOPS_F32 = 7
 
 
-def compose_bound(torch, starts, images, slabs, dyns, ops, out,
+def compose_bound(torch, K, starts, images, slabs, dyns, ops, out,
                   desc_bytes: int) -> tuple[float, str, dict]:
     """The least time the card could take for one compose launch on these
     inputs. → (bound ms, "bytes" | "operations", {"bytes", "layer_px":
     pixels blended from chrome layers, slab rows inside their y clip and
-    pre-rendered tails, "entries": inline shape bin entries})."""
+    pre-rendered tails, "entries": inline shape bin entries, "pixels": of
+    their extents, "old_ms": the bound at 8192 pixels an entry})."""
     height, width = out.shape[0], out.shape[1]
     n_bytes = (out.numel() + starts.numel() * starts.element_size()
                + desc_bytes)
-    px_i16 = px_f32 = entries = 0
+    px_i16 = px_f32 = entries = pixels = 0
     ys = torch.arange(height, dtype=torch.float32) + 0.5
     for op in ops:
         if op[0] == "img":
@@ -263,22 +305,31 @@ def compose_bound(torch, starts, images, slabs, dyns, ops, out,
             tables = dyns.get((op[1], op[2]))
             if tables is None:
                 continue
-            _, _, bins, counts = tables
+            shapes, clips, bins, counts = tables
             n_bytes += sum(t.numel() * t.element_size() for t in tables)
             k = torch.arange(bins.shape[1], device=bins.device)[None, :]
-            entries += int(((bins >= 0) & (k < counts[:, None])).sum().item())
+            # The tail's tables and bins live in its sub-grid of tile
+            # columns [c0, c0 + ts), and so do the extents.
+            t_idx, n_px = entry_pixels(
+                torch, K, 0, (shapes, clips), bins,
+                (bins >= 0) & (k < counts[:, None]), op[4], height,
+                width - op[3] * 128)
+            entries += int(t_idx.numel())
+            pixels += int(n_px.sum().item())
         else:
             t = dyns.get((op[1], op[2]))
             if t is not None:
                 px_f32 += t.shape[0] * t.shape[1]
     n_bytes += 8 * px_i16 + 16 * px_f32
-    flops = (BLEND_FLOPS_I16 * px_i16 + BLEND_FLOPS_F32 * px_f32
-             + entries * TILE_PIXELS * FLOPS_PER_PIXEL[0])
+    blend = BLEND_FLOPS_I16 * px_i16 + BLEND_FLOPS_F32 * px_f32
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (blend + pixels * FLOPS_PER_PIXEL[0]) / PEAK_F32_FLOPS * 1e3
+    t_old = (blend + entries * TILE_PIXELS * FLOPS_PER_PIXEL[0]) \
+        / PEAK_F32_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", {"bytes": n_bytes, "layer_px": px_i16 + px_f32,
-                           "entries": entries})
+                           "entries": entries, "pixels": pixels,
+                           "old_ms": max(t_bytes, t_old)})
 
 
 def main() -> int:
@@ -404,7 +455,29 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         if not ok:
             fail(f"{name} disagrees with its plain version on {label}")
 
+    def compare_i16(label, kind_s, k, p, k_f32, shape):
+        """K2's i16 layer: the quantized values of its own f32 layer, bit
+        for bit; against the plain version's i16 layer 0 values apart on
+        shapes, and where glyphs or images are resampled at most one count
+        (the plain version's matrix products contract multiply-adds on the
+        card, the kernel does not: its f32 layers differ in the last
+        place, which can move a value across a rounding boundary)."""
+        if tuple(k.shape) != shape or k.dtype != torch.int16 \
+                or not k.is_contiguous():
+            fail(f"K2 {label}: kernel output {tuple(k.shape)} {k.dtype}")
+        if not torch.equal(k, B.quantize_i16(k_f32)):
+            fail(f"K2 {label}: not quantize_i16 of the kernel's f32 layer")
+        d = (k.int() - p.int()).abs()
+        apart, mx = int(d.gt(0).sum().item()), int(d.max().item())
+        max_err["K2"] = max(max_err["K2"], mx * 255.0 / 32767.0)
+        i16_apart.append(apart)
+        log(f"K2 vs plain: {label}: {apart} of {d.numel()} i16 values "
+            f"apart, max {mx} count(s)")
+        if mx > (0 if kind_s in ("shapes", "empty") else 1):
+            fail(f"K2 disagrees with its plain version on {label}")
+
     # ---- 3. each kernel against its plain version ----------------------------
+    n_modes, i16_apart = 0, []
     for kind_s in KINDS:
         for seed in (0, 1):
             scene = synthetic_scene(kind_s, seed, renderer.regular, bold_v)
@@ -438,6 +511,34 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
                     and bool((k3[..., 3] > 0).any())):
                 fail(f"{label}: the f32 layer is not a transparent canvas "
                      "with ink on it")
+            layer_args = k2_inputs(scene, atlas, bg=None)
+            ki, pi = both(
+                lambda *a: B.render_tiles_blocks(*a, layer_i16=True),
+                lambda *a: B.render_tiles_blocks_plain(*a, layer_i16=True),
+                layer_args)
+            compare_i16(label + " i16 layer", kind_s, ki, pi, k3, shape)
+            # A tile rect off the origin that ends on the frame's ragged
+            # edge, and one at the origin: the full output cut to it.
+            ty, tx = layer_args[4], layer_args[5]
+            for rect in ((ty // 2, tx // 2, ty, tx),
+                         (0, 0, max(1, ty // 2), max(1, tx - 1))):
+                ys = slice(rect[0] * 64, rect[2] * 64)
+                xs = slice(rect[1] * 128, rect[3] * 128)
+                for what, full, args_m, kw_m in (
+                        ("u8 frame", k2, k2_inputs(scene, atlas), {}),
+                        ("f32 layer", k3, layer_args, {}),
+                        ("i16 layer", ki, layer_args, {"layer_i16": True})):
+                    got = B.render_tiles_blocks(*args_m, tile_rect=rect,
+                                                **kw_m)
+                    if not got.is_contiguous() \
+                            or not torch.equal(got, full[ys, xs]):
+                        fail(f"K2 {label} {what}: tile rect {rect} is not "
+                             "the full output cut to it")
+            n_modes += 7
+    log(f"K2: {n_modes} launches in the i16 and tile-rect modes on the "
+        f"synthetic scenes; i16 layers {sum(i16_apart)} values from the plain "
+        f"version's over {len(i16_apart)} scenes; every tile rect "
+        "torch.equal to the full output cut to it")
     scene = synthetic_scene("windows2", 0, renderer.regular, bold_v)
     blocks = k2_inputs(scene, torch.from_numpy(scene.image_atlas).to(dev))[0]
     if [lo is None for _, _, lo, _ in blocks[0][0]] != \
@@ -458,25 +559,38 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         if not bool((k[..., 3] == 255).all()):
             fail(f"K3 {label}: the frame is not opaque")
 
-    cw, ch = COMPOSE_SYNTH_SIZE
     kinds_seen = set()
-    for case in COMPOSE_CASES:
-        for seed in (0, 1):
-            a = compose_args_to(synthetic_compose(case, seed, cw, ch), dev)
-            pos = tuple(a.pop(k) for k in ("starts", "images", "slabs",
-                                           "dyns"))
-            kinds_seen |= {op[0] for op in a["ops"]}
-            k, p = k3_both(pos, a)
-            compare_k3(f"{case:10s} seed {seed} {cw}x{ch}, "
-                       f"{len(a['ops'])} ops", k, p, (ch, cw, 4))
-            if case == "empty":
-                bg = torch.tensor([int(c * 255.0 + 0.5) for c in
-                                   a["background"][:3]] + [255],
-                                  dtype=torch.int32, device=dev)
-                if not bool((k.int() == bg).all()):
-                    fail("K3 with no op: not the background")
+    for cw, ch in (COMPOSE_SYNTH_SIZE, COMPOSE_SYNTH_ODD):
+        for case in COMPOSE_CASES:
+            for seed in (0, 1):
+                a = compose_args_to(synthetic_compose(case, seed, cw, ch),
+                                    dev)
+                pos = tuple(a.pop(k) for k in ("starts", "images", "slabs",
+                                               "dyns"))
+                kinds_seen |= {op[0] for op in a["ops"]}
+                k, p = k3_both(pos, a)
+                compare_k3(f"{case:10s} seed {seed} {cw}x{ch}, "
+                           f"{len(a['ops'])} ops", k, p, (ch, cw, 4))
+                if case == "empty":
+                    bg = torch.tensor([int(c * 255.0 + 0.5) for c in
+                                       a["background"][:3]] + [255],
+                                      dtype=torch.int32, device=dev)
+                    if not bool((k.int() == bg).all()):
+                        fail("K3 with no op: not the background")
     if kinds_seen != {"img", "slab", "dyni", "dyn"}:
         fail(f"the compose cases hold only the op kinds {kinds_seen}")
+    cw, ch = COMPOSE_SYNTH_SIZE
+    # An op list over the cap of the descriptors that ride in the launch:
+    # the same layers blended again and again, through the device array.
+    for case in ("layers", "tails"):
+        a = compose_args_to(synthetic_compose(case, 0, cw, ch), dev)
+        pos = tuple(a.pop(k) for k in ("starts", "images", "slabs", "dyns"))
+        a["ops"] = a["ops"] * (CK.MAX_INLINE_OPS // len(a["ops"]) + 1)
+        if len(a["ops"]) <= CK.MAX_INLINE_OPS:
+            fail("the long op list is under the cap")
+        k, p = k3_both(pos, a)
+        compare_k3(f"{case:10s} over the cap, {len(a['ops'])} ops through "
+                   "the device array", k, p, (ch, cw, 4))
     # A scene whose volatile tail holds glyphs, through compose itself: K2
     # pre-renders that tail over its sub-grid of tile columns for K3.
     scene = synthetic_scene("volatile", 0, renderer.regular, bold_v)
@@ -721,7 +835,8 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         "is torch.equal to the frame cache's, no K3 launch")
 
     def k3_inputs(scene):
-        """→ (starts, images, slabs, dyns), keywords, blob bytes."""
+        """→ (starts, images, slabs, dyns), keywords, blob bytes, the
+        plan's descriptor rows."""
         args, st = C.prepare_compose_dispatch(scene, font, image_atlas)
         starts, dyns, kops = C.frame_tails(
             args[0], font, image_atlas, st["height"], st["width"],
@@ -730,11 +845,11 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
                   background=st["background"], height=st["height"],
                   width=st["width"])
         return ((starts, tuple(args[1]), tuple(args[2]), dyns), kw,
-                args[0].numel() * args[0].element_size())
+                args[0].numel() * args[0].element_size(), st["rows"])
 
     for off in COMPOSE_PLAIN_OFFSETS:
         scene = composed["scenes"][off]
-        pos, kw, _ = k3_inputs(scene)
+        pos, kw, _, _ = k3_inputs(scene)
         k, p = k3_both(pos, kw)
         if off in composed["frames"] \
                 and not torch.equal(k, composed["frames"][off]):
@@ -745,6 +860,50 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     slice_launches = {"K1": packed["launches"][0],
                       "K2": cached["launches"][1],
                       "K3": composed["launches"][2]}
+
+    # Every cached layer of a plan build, as K2 writes it: the slabs whole,
+    # the chrome groups over the tile rects of their ink, i16.
+    F.clear_caches()
+    C.clear_caches()
+    layer_builds = []
+    real_blocks = C.render_tiles_blocks
+
+    def recording(*a, **k):
+        out = real_blocks(*a, **k)
+        if k.get("layer_i16"):
+            layer_builds.append((a, k, out))
+        return out
+
+    C.render_tiles_blocks = recording
+    try:
+        render_scene_device(compile_at(0.0), font, image_atlas)
+    finally:
+        C.render_tiles_blocks = real_blocks
+    torch.cuda.synchronize()
+    slab_builds = [r for r in layer_builds if "tile_rect" not in r[1]]
+    group_builds = [r for r in layer_builds if "tile_rect" in r[1]]
+    if len(slab_builds) < 2 or not group_builds:
+        fail(f"a plan build at offset 0 rendered {len(slab_builds)} slabs and "
+             f"{len(group_builds)} chrome groups")
+    cached_ptrs = ({v[0].data_ptr() for v in C._GROUP_CACHE.values()}
+                   | {v["img"].data_ptr() for v in C._SLAB_CACHE.values()})
+    if {out.data_ptr() for _, _, out in layer_builds} != cached_ptrs:
+        fail("a cached layer is not the tensor K2 wrote: a pass followed it")
+    for a, k, out in layer_builds:
+        rect = k.get("tile_rect")
+        what = (f"chrome group over tiles {rect} of {a[4]}x{a[5]}" if rect
+                else f"slab, class {[len(c) for c in a[0][0]].index(1)}")
+        plain = B.render_tiles_blocks_plain(*a, **k)
+        own_f32 = B.render_tiles_blocks(*a, tile_rect=rect)
+        compare_i16(f"plan build: {what}, {out.shape[1]}x{out.shape[0]}",
+                    "history", out, plain, own_f32, tuple(plain.shape))
+    n_cut = sum(1 for a, k, _ in group_builds
+                if (k["tile_rect"][2] - k["tile_rect"][0])
+                * (k["tile_rect"][3] - k["tile_rect"][1]) < a[4] * a[5])
+    log(f"slice: a plan build wrote {len(slab_builds)} slabs and "
+        f"{len(group_builds)} chrome groups ({n_cut} over fewer tiles than "
+        "the frame's) as i16 straight from K2; the caches hold those very "
+        "tensors")
 
     # ---- 5. the CLI --------------------------------------------------------
     png = os.path.join(work, "shot.png")
@@ -767,7 +926,8 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     scene0 = cached["scenes"][0.0]
     args1 = k1_inputs(scene0, image_atlas)
     args2 = k2_inputs(scene0, image_atlas)
-    pos3, kw3, blob_bytes = k3_inputs(composed["scenes"][0.0])
+    pos3, kw3, blob_bytes, rows3 = k3_inputs(composed["scenes"][0.0])
+    from torch.profiler import ProfilerActivity, profile
 
     def event_ms(fn, runs: int) -> float:
         for _ in range(2):
@@ -784,6 +944,49 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def device_events(prof) -> list:
+        return [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) is not None
+                and "CUDA" in str(e.device_type)]
+
+    flush_buf = torch.empty(192 << 20, dtype=torch.uint8, device=dev)
+
+    def device_ms(fn, runs: int = 20, flush: bool = False):
+        """→ (this repository's kernels alone, every device event of `fn`),
+        ms a call, from the profiler's device times over `runs` calls; with
+        `flush` the 50 MB L2 is overwritten before each call (not
+        counted)."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                if flush:
+                    flush_buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        own = every = 0.0
+        for e in device_events(prof):
+            if "raster::" in e.key:
+                own += e.self_device_time_total
+            if not flush or "raster::" in e.key:
+                every += e.self_device_time_total
+        if own <= 0:
+            fail("the profiler shows no device time for the kernel")
+        return own / runs / 1e3, every / runs / 1e3
+
+    def host_us(fn, runs: int = 200) -> float:
+        """The host's time to enqueue one call, in microseconds: what a
+        short kernel's wrapper costs before the device has anything to do."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / runs * 1e6
+
     timed = (("K1 plain", lambda: K.render_tiles_plain(*args1),
               TIMED_PLAIN_RUNS),
              ("K1", lambda: K.render_tiles(*args1), TIMED_KERNEL_RUNS),
@@ -793,48 +996,156 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
               TIMED_KERNEL_RUNS),
              ("K3 plain", lambda: CK.compose_tiles_plain(*pos3, **kw3),
               TIMED_PLAIN_RUNS),
-             ("K3", lambda: CK.compose_tiles(*pos3, **kw3),
+             ("K3", lambda: CK.compose_tiles(*pos3, **kw3, rows=rows3),
+              TIMED_KERNEL_RUNS),
+             ("K3 rows afresh", lambda: CK.compose_tiles(*pos3, **kw3),
               TIMED_KERNEL_RUNS))
     ms = {name: [] for name, _, _ in timed}
+    alone, host = {}, {}
     for _ in range(2):                       # in turns, twice round
         for name, fn, runs in timed:
             ms[name].append(event_ms(fn, runs))
+            if "plain" not in name:
+                host.setdefault(name, []).append(host_us(fn))
+                if "afresh" not in name:
+                    alone.setdefault(name, []).append(device_ms(fn)[0])
+    log(f"timing [{card}]: the wrappers' host time to enqueue one call "
+        "(host clock over 200 calls, no synchronize between): "
+        + "; ".join(f"{name} {v[0]:.1f} / {v[1]:.1f} us"
+                    for name, v in host.items()))
     out1, out2 = K.render_tiles(*args1), B.render_tiles_blocks(*args2)
-    out3 = CK.compose_tiles(*pos3, **kw3)
-    bound1 = kernel_bound(torch, [
+    out3 = CK.compose_tiles(*pos3, **kw3, rows=rows3)
+
+    def blocks_runs(layers_blocks):
+        return [(ci, *block) for cls_lists in layers_blocks
+                for ci in B.Z_ORDER for block in cls_lists[ci]]
+
+    bound1 = kernel_bound(torch, K, [
         (ci, tuple(layer[j] for j in F._CLS_TABLES[ci]), layer[7 + ci],
          None, None)
         for layer, sig in zip(args1[0], args1[6])
-        for ci in B.Z_ORDER if sig[ci]], out1)
-    bound2 = kernel_bound(torch, [
-        (ci, *block) for cls_lists in args2[0] for ci in B.Z_ORDER
-        for block in cls_lists[ci]], out2)
+        for ci in B.Z_ORDER if sig[ci]], out1, args1[5])
+    bound2 = kernel_bound(torch, K, blocks_runs(args2[0]), out2, args2[5])
     desc3 = CK.op_descriptors(pos3[1], pos3[2], pos3[3], kw3["ops"],
-                              kw3["tiles_y"], pos3[0].device)[0]
-    bound3 = compose_bound(torch, *pos3, kw3["ops"], out3, desc3.nbytes)
+                              kw3["tiles_y"], pos3[0].device, rows3)[0]
+    bound3 = compose_bound(torch, K, *pos3, kw3["ops"], out3, desc3.nbytes)
     log(f"timing [{card}]: history view {W}x{H} at offset 0; K1 walks "
-        f"(shape, glyph, image) bin entries {bound1[2]['entries']} and "
-        f"moves {bound1[2]['bytes']} B, K2 {bound2[2]['entries']} and "
-        f"{bound2[2]['bytes']} B in "
+        f"(shape, glyph, image) bin entries {bound1[2]['entries']} whose "
+        f"extents hold {bound1[2]['pixels']} pixels and moves "
+        f"{bound1[2]['bytes']} B, K2 {bound2[2]['entries']} with "
+        f"{bound2[2]['pixels']} pixels and {bound2[2]['bytes']} B in "
         f"{sum(len(c) for cl in args2[0] for c in cl)} blocks; K3 blends "
         f"{len(kw3['ops'])} ops ({', '.join(op[0] for op in kw3['ops'])}), "
         f"{bound3[2]['layer_px']} layer pixels and {bound3[2]['entries']} "
-        f"inline shape entries, and moves {bound3[2]['bytes']} B")
+        f"inline shape entries with {bound3[2]['pixels']} pixels, and moves "
+        f"{bound3[2]['bytes']} B")
+    log(f"timing [{card}]: the bound counts the pixels of each entry's extent "
+        "inside its tile; at 8192 pixels an entry, the former count, it was "
+        + ", ".join(f"{name} {b[2]['old_ms']:.6f} ms (now {b[0]:.6f})"
+                    for name, b in (("K1", bound1), ("K2", bound2),
+                                    ("K3", bound3))))
     for name, bound in (("K1", bound1), ("K2", bound2)):
         log(f"timing [{card}]: {name} {ms[name][0]:.4f} / {ms[name][1]:.4f} "
-            f"ms, plain {ms[name + ' plain'][0]:.4f} / "
-            f"{ms[name + ' plain'][1]:.4f} ms (CUDA events, median of "
+            f"ms by CUDA events around the wrapper, {alone[name][0]:.4f} / "
+            f"{alone[name][1]:.4f} ms the kernel alone (profiler), plain "
+            f"{ms[name + ' plain'][0]:.4f} / "
+            f"{ms[name + ' plain'][1]:.4f} ms (median of "
             f"{TIMED_KERNEL_RUNS} and {TIMED_PLAIN_RUNS}, in turns); bound "
             f"{bound[0]:.6f} ms by {bound[1]} (its busiest tile alone, "
             f"{bound[2]['busiest_share']:.4f} of the arithmetic, needs "
             f"{bound[2]['busiest_tile_ms']:.6f} ms of one SM); no PyTorch "
             "call computes this function")
-    log(f"timing [{card}]: K3 {ms['K3'][0]:.4f} / {ms['K3'][1]:.4f} ms, "
-        f"plain {ms['K3 plain'][0]:.4f} / {ms['K3 plain'][1]:.4f} ms (CUDA "
-        f"events around the wrapper, its descriptor upload included, median "
-        f"of {TIMED_KERNEL_RUNS} and {TIMED_PLAIN_RUNS}, in turns); bound "
-        f"{bound3[0]:.6f} ms by {bound3[1]}; no single PyTorch call "
-        "computes this function")
+    log(f"timing [{card}]: K3 {ms['K3'][0]:.4f} / {ms['K3'][1]:.4f} ms by "
+        "CUDA events around the wrapper with the plan's rows, as a frame "
+        f"calls it ({ms['K3 rows afresh'][0]:.4f} / "
+        f"{ms['K3 rows afresh'][1]:.4f} ms with every row built and checked "
+        f"afresh), {alone['K3'][0]:.4f} / {alone['K3'][1]:.4f} ms the kernel "
+        f"alone (profiler), plain {ms['K3 plain'][0]:.4f} / "
+        f"{ms['K3 plain'][1]:.4f} ms (median of {TIMED_KERNEL_RUNS} and "
+        f"{TIMED_PLAIN_RUNS}, in turns); bound {bound3[0]:.6f} ms by "
+        f"{bound3[1]}; no single PyTorch call computes this function")
+
+    # K2 at the slab's size, i16 out, beside the former route: the f32
+    # layer, then the quantize in torch ops (`quantize_i16`).
+    slab_ms = {}
+    for a, k, out in slab_builds:
+        ci = [len(c) for c in a[0][0]].index(1)
+        bound = kernel_bound(torch, K, blocks_runs(a[0]), out, a[5])
+
+        def new_route(a=a):
+            return B.render_tiles_blocks(*a, layer_i16=True)
+
+        def old_route(a=a):
+            return B.quantize_i16(B.render_tiles_blocks(*a))
+
+        ev = [event_ms(fn, 20) for fn in (old_route, new_route, new_route,
+                                          old_route)]
+        dv = [device_ms(fn) for fn in (old_route, new_route, new_route,
+                                       old_route)]
+        slab_ms[ci] = (min(ev[1], ev[2]), min(dv[1][0], dv[2][0]))
+        log(f"timing [{card}]: K2 at the slab's size, class {ci}, "
+            f"{out.shape[1]}x{out.shape[0]} i16 layer over {a[4] * a[5]} "
+            f"tiles, {bound[2]['entries'][ci]} entries with "
+            f"{bound[2]['pixels'][ci]} pixels: {ev[1]:.4f} / {ev[2]:.4f} ms "
+            f"by events, {dv[1][0]:.4f} / {dv[2][0]:.4f} ms the kernel "
+            f"alone; the former route (f32 layer + quantize_i16 in torch "
+            f"ops) {ev[0]:.4f} / {ev[3]:.4f} ms by events, its device "
+            f"events {dv[0][1]:.4f} / {dv[3][1]:.4f} ms of which K2 "
+            f"{dv[0][0]:.4f} / {dv[3][0]:.4f}; bound {bound[0]:.6f} ms by "
+            f"{bound[1]} ({bound[2]['old_ms']:.6f} at 8192 pixels an entry)")
+        if min(ev[1], ev[2]) < bound[0]:
+            fail("K2 at the slab's size reads faster than its bound")
+
+    # The splits, by measurement: the unit of a tile a K2 CTA owns (at the
+    # history view and at the slab of glyphs), the rows a K3 thread owns.
+    glyph_slab = [a for a, _, _ in slab_builds
+                  if [len(c) for c in a[0][0]].index(1) == 1]
+    chosen = (B.STRIP_W, B.ROWS_PER_THREAD)
+    parts = []
+    for strip, rows_pt in ((32, 4), (64, 4), (32, 8), (32, 16), (128, 16)):
+        B.STRIP_W, B.ROWS_PER_THREAD = strip, rows_pt
+        t_hist = device_ms(lambda: B.render_tiles_blocks(*args2))[0]
+        t_slab = (device_ms(lambda: B.render_tiles_blocks(
+            *glyph_slab[0], layer_i16=True))[0] if glyph_slab
+            else float("nan"))
+        parts.append(f"{strip}x{4 * rows_pt} {t_hist:.4f} ms at the history "
+                     f"view, {t_slab:.4f} ms at the slab of glyphs")
+    B.STRIP_W, B.ROWS_PER_THREAD = chosen
+    log(f"timing [{card}]: K2's unit of a tile (columns x rows a CTA), the "
+        f"kernel alone (the port launches {chosen[0]}x{4 * chosen[1]}): "
+        + "; ".join(parts))
+    chosen = CK.ROWS_PER_THREAD
+    parts = []
+    for rows_pt in (2, 4, 8):
+        CK.ROWS_PER_THREAD = rows_pt
+
+        def k3_call():
+            return CK.compose_tiles(*pos3, **kw3, rows=rows3)
+
+        parts.append(f"{2 * rows_pt} rows a CTA {device_ms(k3_call)[0]:.4f} "
+                     f"ms, after a flush of the L2 "
+                     f"{device_ms(k3_call, flush=True)[0]:.4f} ms")
+    CK.ROWS_PER_THREAD = chosen
+    log(f"timing [{card}]: K3's row split, the kernel alone, back to back "
+        f"on one frame's layers (the port launches {2 * chosen} rows a "
+        "CTA): " + "; ".join(parts))
+
+    # K3 with an op list over the cap, through the device array: the
+    # smallest chrome layer blended again until the list is one too long.
+    small = min((op for op in kw3["ops"] if op[0] == "img"),
+                key=lambda op: pos3[1][op[1]].numel())
+    long_kw = dict(kw3, ops=kw3["ops"] + (small,) * (
+        CK.MAX_INLINE_OPS + 1 - len(kw3["ops"])))
+    k, p_ = k3_both(pos3, long_kw)
+    compare_k3(f"history view, {len(long_kw['ops'])} ops through the device "
+               "array", k, p_, (H, W, 4))
+    inline_kw = dict(long_kw, ops=long_kw["ops"][:-1])
+    ev = [event_ms(lambda kw=kw: CK.compose_tiles(*pos3, **kw, rows=rows3),
+                   TIMED_KERNEL_RUNS) for kw in (inline_kw, long_kw)]
+    log(f"timing [{card}]: K3 with {len(inline_kw['ops'])} ops riding in the "
+        f"launch {ev[0]:.4f} ms, with {len(long_kw['ops'])} through an "
+        f"uploaded device array {ev[1]:.4f} ms (CUDA events around the "
+        f"wrapper, median of {TIMED_KERNEL_RUNS})")
 
     def med(xs):
         return statistics.median(xs) if xs else float("nan")
@@ -951,10 +1262,9 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         f"{blob_bytes} B + {len(desc3)} op descriptors {desc3.nbytes} B "
         "(a frame state seen before uploads no blob)")
 
-    # Device events and busy share over 20 end-to-end steady frames
-    # (torch.profiler): compose, then the frame cache, the same offsets.
-    from torch.profiler import ProfilerActivity, profile
-
+    # Device events, host-to-device copies and busy share over 20
+    # end-to-end steady frames (torch.profiler): compose, then the frame
+    # cache, the same offsets.
     def profile_path(path: str, label: str):
         take_path(path)
         offs = COMPOSE_OFFSETS[-20:]
@@ -970,26 +1280,52 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
                 torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         take_path("compose")
-        dev_events = [e for e in prof.key_averages()
-                      if getattr(e, "device_type", None) is not None
-                      and "CUDA" in str(e.device_type)]
-        dev_us = sum(getattr(e, "self_device_time_total", 0.0)
-                     for e in dev_events)
+        dev_events = device_events(prof)
+        dev_us = sum(e.self_device_time_total for e in dev_events)
         if dev_us <= 0:
-            log(f"profile [{card}]: {label}: no device time in the trace "
-                "(not measured)")
-            return
+            fail(f"profile: {label}: no device time in the trace")
         top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:5]
         n_ev = sum(e.count for e in dev_events)
+        copies = sum(e.count for e in dev_events if "memcpy" in e.key.lower())
         log(f"profile [{card}]: {label}, 20 frames, device busy "
             f"{dev_us / wall_us:.4f} of {wall_us / 1e3:.2f} ms wall, "
-            f"{n_ev} device events ({n_ev / 20:.1f} a frame); top kernels "
+            f"{n_ev} device events ({n_ev / 20:.1f} a frame), {copies} of "
+            f"them copies ({copies / 20:.1f} a frame); top kernels "
             "(us total): "
             + "; ".join(f"{e.key[:60]} {e.self_device_time_total:.1f}"
                         f" x{e.count}" for e in top))
+        return n_ev / 20, copies / 20
 
-    profile_path("compose", "compose")
+    events_c, copies_c = profile_path("compose", "compose")
+    if copies_c > 1.0:
+        fail(f"a steady composed frame makes {copies_c} copies: more than "
+             "its blob's")
+    if events_c >= 10.0:
+        fail(f"a steady composed frame has {events_c} device events, no "
+             "fewer than before the descriptors rode in the launch (10.0)")
     profile_path("cache", "frame cache")
+
+    # One plan build under the profiler: the layers come out of K2 as i16,
+    # and no rounding pass follows a slab or a group.
+    F.clear_caches()
+    C.clear_caches()
+    scene = compile_at(0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        render_scene_device(scene, font, image_atlas)
+        torch.cuda.synchronize()
+    dev_events = device_events(prof)
+    rounding = [e.key for e in dev_events if "round" in e.key.lower()]
+    own = {e.key[:48]: (e.count, e.self_device_time_total)
+           for e in dev_events if "raster::" in e.key}
+    log(f"profile [{card}]: one plan build at offset 0 (4 groups, 2 slabs): "
+        f"{sum(e.count for e in dev_events)} device events, "
+        f"{sum(e.self_device_time_total for e in dev_events) / 1e3:.4f} ms of "
+        f"device time; this repository's kernels (count, us): {own}; "
+        f"{len(rounding)} rounding kernels")
+    if rounding:
+        fail(f"a plan build ran a quantize pass in torch ops: {rounding}")
 
     def row(name, stem, replaces, bound):
         return {"name": stem, "route": "cuda",
@@ -1002,9 +1338,13 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
                 "bound_ms": round(bound[0], 6), "bound_by": bound[1],
                 "library_ms": None}
 
-    return [row("K1", "raster_tiles", "pallas_raster.py:321", bound1),
-            row("K2", "raster_blocks", "pallas_raster.py:505", bound2),
-            row("K3", "compose_tiles", "pallas_compose.py:348", bound3)]
+    kernels = [row("K1", "raster_tiles", "pallas_raster.py:321", bound1),
+               row("K2", "raster_blocks", "pallas_raster.py:505", bound2),
+               row("K3", "compose_tiles", "pallas_compose.py:348", bound3)]
+    for r, name in zip(kernels, ("K1", "K2", "K3")):
+        if min(r["ms"], min(alone[name])) < r["bound_ms"]:
+            fail(f"{r['name']} reads faster than its bound: {r}")
+    return kernels
 
 
 if __name__ == "__main__":

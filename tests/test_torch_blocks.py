@@ -260,3 +260,122 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setitem(B._LIB, "lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         B.build()
+
+
+# ---- the layer epilogues of the compose path -----------------------------------
+
+@pytest.mark.parametrize("kind", ("shapes", "images", "volatile",
+                                  "windows2"))
+def test_i16_mode_is_the_quantized_f32_layer(port_renderer, kind):
+    """`layer_i16` writes `quantize_i16` of the f32 layer, value for value
+    (what `compose._quant_i16_planar` made of it in a pass of its own)."""
+    from whisper_git_tpu_torch.render import compose as PC
+
+    r = port_renderer
+    scene = synthetic_scene(kind, 1, r.regular, r.regular.texture.shape[0])
+    blocks, ty, tx = reference_blocks(scene)
+    args = (blocks, r.font_tex_device(), torch.from_numpy(scene.image_atlas),
+            None, ty, tx, scene.height, scene.width)
+    f32 = B.render_tiles_blocks_plain(*args)
+    i16 = B.render_tiles_blocks_plain(*args, layer_i16=True)
+    assert i16.dtype == torch.int16 and i16.is_contiguous()
+    assert tuple(i16.shape) == (scene.height, scene.width, 4)
+    assert torch.equal(i16, PC._quant_i16_planar(f32))
+    assert PC._quant_i16_planar is B.quantize_i16
+    assert torch.equal(i16, B.render_tiles_blocks(*args, layer_i16=True))
+    assert int(i16[..., 3].max()) > 0 and int(i16.abs().max()) <= 32767
+
+
+@pytest.mark.parametrize("kind", ("shapes", "images", "volatile",
+                                  "windows2"))
+def test_tile_rect_mode_is_the_crop_of_the_full_layer(port_renderer, kind):
+    """`tile_rect` renders only those tiles: the output is the full layer
+    cut to them, ending where the frame does (a ragged last row and
+    column), in the f32, the i16 and the u8 mode."""
+    r = port_renderer
+    scene = synthetic_scene(kind, 1, r.regular, r.regular.texture.shape[0],
+                            width=300, height=150)
+    blocks, ty, tx = reference_blocks(scene)
+    assert (ty, tx) == (3, 3)
+    bg = tuple(float(c) for c in scene.background[:3])
+    args = (blocks, r.font_tex_device(), torch.from_numpy(scene.image_atlas))
+    size = (ty, tx, scene.height, scene.width)
+    for rect in ((0, 0, 2, 1), (1, 1, 3, 3), (2, 2, 3, 3), (0, 0, 3, 3)):
+        ty0, tx0, ty1, tx1 = rect
+        ys = slice(ty0 * 64, min(ty1 * 64, scene.height))
+        xs = slice(tx0 * 128, min(tx1 * 128, scene.width))
+        for background, kw in ((None, {}), (None, {"layer_i16": True}),
+                               (bg, {})):
+            full = B.render_tiles_blocks_plain(*args, background, *size, **kw)
+            got = B.render_tiles_blocks(*args, background, *size,
+                                        tile_rect=rect, **kw)
+            assert got.is_contiguous() and got.dtype == full.dtype
+            assert torch.equal(got, full[ys, xs]), (rect, kw)
+    assert got.shape == (150, 300, 4)
+
+
+def test_layer_modes_refuse_what_has_no_meaning(port_renderer):
+    r = port_renderer
+    scene, blocks, ty, tx = _small_blocks(r)
+    args = (blocks, r.font_tex_device(), torch.from_numpy(scene.image_atlas))
+    size = (ty, tx, scene.height, scene.width)
+    with pytest.raises(ValueError, match="layer_i16"):
+        B.render_tiles_blocks(*args, (0.1, 0.2, 0.3), *size, layer_i16=True)
+    for rect in ((0, 0, 0, 1), (0, 1, 1, 1), (-1, 0, 1, 1),
+                 (0, 0, ty + 1, tx)):
+        with pytest.raises(ValueError, match="tile rect"):
+            B.render_tiles_blocks(*args, None, *size, tile_rect=rect)
+    # a rect inside the grid but past the frame's pixels
+    with pytest.raises(ValueError, match="outside"):
+        B.rect_extent((0, 1, 1, 2), 1, 2, 64, 100)
+    assert B.rect_extent(None, 2, 3, 100, 300) == (0, 0, 2, 3, 100, 300)
+    assert B.rect_extent((1, 2, 2, 3), 2, 3, 100, 300) == (1, 2, 2, 3, 36, 44)
+
+
+# ---- descriptors that ride in the launch ---------------------------------------
+
+def test_params_struct_layout_and_the_inline_cap():
+    """The parameter block as nvcc lays it out for a 64-bit target, with the
+    block descriptors that ride in the launch by value at its end; the
+    whole stays under the 4 KB a launch may carry."""
+    import ctypes
+
+    P = B._BlocksParams
+    assert B._BLOCK_DESC.itemsize == 56
+    assert (P.blocks.offset, P.n_blocks.offset, P.out_mode.offset) == (0, 8,
+                                                                       12)
+    assert (P.font_tex.offset, P.image_atlas.offset) == (16, 32)
+    assert (P.bg_r.offset, P.tiles_x.offset, P.ty0.offset) == (48, 60, 68)
+    assert (P.rect_tx.offset, P.height.offset, P.out.offset) == (76, 80, 88)
+    assert P.inline_blocks.offset == 96
+    assert B.MAX_INLINE_BLOCKS == 64
+    assert ctypes.sizeof(P) == 96 + B.MAX_INLINE_BLOCKS * 56 <= 4096
+
+
+@pytest.mark.parametrize("n", (0, 3, 64, 65))
+def test_descriptors_ride_inline_up_to_the_cap(n):
+    """Up to the cap the rows are copied into the parameter block and no
+    tensor is made; one row more and the list goes through an array in
+    device memory, the inline rows untouched."""
+    import ctypes
+
+    from whisper_git_tpu_torch.render import raster_kernel as K
+
+    rng = np.random.default_rng(n)
+    desc = np.zeros(n, dtype=B._BLOCK_DESC)
+    for name in B._BLOCK_DESC.names:
+        desc[name] = rng.integers(1, 2 ** 31 - 1, n)
+    p = B._BlocksParams()
+    dev = K.place_descriptors(p, "blocks", "inline_blocks", desc,
+                              B.MAX_INLINE_BLOCKS, torch.device("cpu"))
+    inline = bytes(p.inline_blocks)
+    if n <= B.MAX_INLINE_BLOCKS:
+        assert dev is None and not p.blocks
+        assert inline[:desc.nbytes] == desc.tobytes()
+        assert not any(inline[desc.nbytes:])
+    else:
+        assert not any(inline)
+        assert dev.dtype == torch.uint8 and dev.numel() == desc.nbytes
+        assert p.blocks == dev.data_ptr()
+        assert dev.numpy().tobytes() == desc.tobytes()
+    assert ctypes.sizeof(p) == ctypes.sizeof(B._BlocksParams)

@@ -584,3 +584,123 @@ def test_glyph_tail_is_prerendered_by_the_blocks_rasterizer():
     finally:
         os.environ.pop("WGIT_FRAME_CACHE", None)
     assert _diff(got, want).max() <= 1
+
+
+# ---- cached layers written by the blocks rasterizer itself ------------------------
+
+@pytest.mark.parametrize("off", (17.0, 203.0))
+def test_cached_layers_match_the_references(app_fixture, monkeypatch, off):
+    """Every chrome group layer and window slab of the port's plan, as the
+    blocks rasterizer now writes them (i16, a group over its ink's tile
+    rect only), against the reference's under its kernel mode: the same
+    rects, the i16 values within the blocks rasterizers' own bound, in u8
+    units (1 u8 on shapes; the bf16 glyph gap at most 8 u8, more than 2 u8
+    on under 1 % of values)."""
+    _, _, ref, port = app_fixture
+    monkeypatch.setenv("WGIT_COMPOSE_KERNEL", "interpret")
+    _fresh()
+    ref_scene, port_scene = _scenes(app_fixture, off)
+    args_r, _ = C.prepare_compose_dispatch(ref_scene, ref.font_tex_device(),
+                                           ref.image_atlas_device())
+    args_p, st_p = PC.prepare_compose_dispatch(port_scene, *_atlases(port))
+    n = 0
+    for what, ref_layers, port_layers in (("chrome", args_r[1], args_p[1]),
+                                          ("slab", args_r[2], args_p[2])):
+        assert len(ref_layers) == len(port_layers) > 0
+        for i, (a, b) in enumerate(zip(ref_layers, port_layers)):
+            assert b.dtype == torch.int16 and b.is_contiguous()
+            want = interleaved(np.asarray(a))
+            assert want.dtype == np.int16
+            h, w = b.shape[:2]
+            assert want.shape[0] - h < 64 and want.shape[1] - w < 128
+            d = np.abs(b.numpy().astype(np.int32)
+                       - want[:h, :w].astype(np.int32)) * (255.0 / 32767.0)
+            print(f"offset {off} {what} {i} {tuple(b.shape)}: max "
+                  f"{d.max():.4f} u8, >2 u8 on {(d > 2).mean():.6f}")
+            if d.max() > 1:
+                assert d.max() <= 8 and (d > 2).mean() < 0.01, (what, i)
+            n += int(np.abs(b.numpy()).max() > 0)
+    assert n >= 4, "hardly a layer holds ink"
+    assert len(args_p[1]) + len(args_p[2]) == \
+        len(PC._GROUP_CACHE) + len(PC._SLAB_CACHE)
+
+
+def test_layer_builds_write_what_the_quantize_pass_made(app_fixture,
+                                                        monkeypatch):
+    """`_window_slab` and `_chrome_group_image` ask the blocks rasterizer
+    for the i16 layer (a group: over its ink's tile rect) and cache what it
+    returns, with no pass after it; the values are those of the former
+    route, the whole f32 layer through `_quant_i16_planar` and then cut."""
+    _, _, _, port = app_fixture
+    calls = []
+    real = PC.render_tiles_blocks
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    monkeypatch.setattr(PC, "render_tiles_blocks", spy)
+    PC.clear_caches()
+    assert _composed(_scene(app_fixture, 51.0), port) is not None
+    builds = [c for c in calls if c[1].get("layer_i16")]
+    cached = ({id(v[0]) for v in PC._GROUP_CACHE.values()}
+              | {id(v["img"]) for v in PC._SLAB_CACHE.values()})
+    assert {id(out) for _, _, out in builds} == cached and len(cached) >= 3
+    rects = 0
+    for a, k, out in builds:
+        assert a[3] is None                       # a transparent canvas
+        want = PC._quant_i16_planar(real(*a))     # the former route
+        rect = k.get("tile_rect")
+        if rect is not None:
+            ty0, tx0, ty1, tx1 = rect
+            want = want[ty0 * 64:ty1 * 64, tx0 * 128:tx1 * 128]
+            rects += (ty1 - ty0) * (tx1 - tx0) < a[4] * a[5]
+        assert out.dtype == torch.int16 and torch.equal(out, want)
+    assert rects, "no chrome group was cut to less than the frame"
+
+
+def test_plan_rows_live_and_die_with_the_plan(app_fixture):
+    """The compose kernel's descriptor rows of the cached layers are built
+    when the plan is, and only then: a plan hit hands the frame the same
+    rows and builds none; a rebuilt plan brings rows of its own."""
+    _, _, _, port = app_fixture
+    font, atlas = _atlases(port)
+    cpu = torch.device("cpu")
+    PC.clear_caches()
+
+    def frame(off):
+        args, st = PC.prepare_compose_dispatch(_scene(app_fixture, off),
+                                               font, atlas)
+        starts, dyns, kops = PC.frame_tails(
+            args[0], font, atlas, 480, 640, st["tiles_y"], st["tiles_x"],
+            st["meta"])
+        return args, st, (tuple(args[1]), tuple(args[2]), dyns, kops,
+                          st["tiles_y"], cpu)
+
+    built = CK._static_row.built
+    args, st, desc_args = frame(17.0)
+    rows = st["rows"]
+    n_static = sum(op[0] in ("img", "slab") for op in st["meta"][0])
+    assert isinstance(rows, CK.PlanRows) and len(rows.rows) == n_static > 0
+    assert CK._static_row.built == built + n_static
+    assert rows.serves(desc_args[0], desc_args[1], cpu)
+    # a plan hit: the plan's own rows, none built by the dispatch or by the
+    # frame's descriptors, which come out as if built afresh
+    args2, st2, desc_args2 = frame(34.0)
+    assert st2["rows"] is rows and len(PC._PLAN_CACHE) == 1
+    desc, _ = CK.op_descriptors(*desc_args2, rows)
+    assert CK._static_row.built == built + n_static
+    fresh, _ = CK.op_descriptors(*desc_args2)
+    assert CK._static_row.built == built + 2 * n_static
+    assert desc.tobytes() == fresh.tobytes() and len(desc) >= n_static
+    # one materialization bucket on: a new plan and new rows, which point
+    # at the new plan's slabs
+    args3, st3, desc_args3 = frame(17.0 + 128.0)
+    assert len(PC._PLAN_CACHE) == 2 and st3["rows"] is not rows
+    n3 = sum(op[0] in ("img", "slab") for op in st3["meta"][0])
+    assert CK._static_row.built == built + 2 * n_static + n3
+    assert st3["rows"].serves(desc_args3[0], desc_args3[1], cpu)
+    assert not rows.serves(desc_args3[0], desc_args3[1], cpu)
+    # and the frame through `_compose_frame` takes them
+    assert PC._compose_frame(*args3, **st3).shape == (480, 640, 4)

@@ -267,10 +267,13 @@ def test_descriptors_reject_what_the_kernel_does_not_take(bad):
 def test_params_struct_layout():
     """The parameter block as nvcc lays it out for a 64-bit target: two
     pointers and two ints, three floats and four ints padded to 8, one
-    pointer."""
-    assert ctypes.sizeof(CK._ComposeParams) == 64
+    pointer, then the op descriptors that ride in the launch by value."""
     assert CK._ComposeParams.starts.offset == 16
     assert CK._ComposeParams.out.offset == 56
+    assert CK._ComposeParams.inline_ops.offset == 64
+    assert ctypes.sizeof(CK._ComposeParams) == 64 + CK.MAX_INLINE_OPS * 72
+    # a launch may carry 4 KB of parameters
+    assert ctypes.sizeof(CK._ComposeParams) <= 4096
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -280,3 +283,78 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(K, "BUILD_DIR", str(tmp_path / "_build"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         CK.build()
+
+
+# ---- descriptors that ride in the launch, rows kept with a plan ------------------
+
+def test_descriptor_row_packs_as_the_struct_mirror():
+    """A row's bytes, packed field by field, read back through the numpy
+    mirror of `ComposeOp`."""
+    assert CK._OP_PACK.size == CK._OP_DESC.itemsize == 72
+    row = CK._row("op", "slab", src=4096, h=7, w=9, slab=3, cy0=1.5,
+                  cy1=20.25)
+    d = np.frombuffer(row, dtype=CK._OP_DESC)[0]
+    assert (d["src"], d["kind"], d["h"], d["w"], d["slab"]) == (4096, 1, 7, 9,
+                                                                3)
+    assert (d["cy0"], d["cy1"], d["clips"], d["ts"]) == (1.5, 20.25, 0, 0)
+    with pytest.raises(ValueError, match="aligned to 16"):
+        CK._row("op", "dyn", src=4096 + 8)
+
+
+@pytest.mark.parametrize("n", (0, 7, 48, 49))
+def test_ops_ride_inline_up_to_the_cap(n):
+    """Up to `MAX_INLINE_OPS` descriptors are copied into the parameter
+    block and no tensor is made; one more and the list goes through an
+    array in device memory, the inline rows untouched."""
+    assert CK.MAX_INLINE_OPS == 48
+    layer = torch.zeros((64, 128, 4), dtype=torch.int16)
+    ops = tuple(("img", 0, i % 3, i % 2) for i in range(n))
+    desc, keep = CK.op_descriptors((layer,), (), {}, ops, 3,
+                                   torch.device("cpu"))
+    assert len(desc) == len(keep) == n
+    p = CK._ComposeParams()
+    dev = K.place_descriptors(p, "ops", "inline_ops", desc,
+                              CK.MAX_INLINE_OPS, torch.device("cpu"))
+    inline = bytes(p.inline_ops)
+    if n <= CK.MAX_INLINE_OPS:
+        assert dev is None and not p.ops
+        assert inline[:desc.nbytes] == desc.tobytes()
+        assert not any(inline[desc.nbytes:])
+    else:
+        assert not any(inline)
+        assert p.ops == dev.data_ptr() and dev.dtype == torch.uint8
+        assert dev.numpy().tobytes() == desc.tobytes()
+
+
+def test_plan_rows_spare_a_frame_its_static_rows():
+    """`PlanRows` builds and checks the "img" and "slab" rows once; a frame
+    that brings them builds only its tails' rows, to the same bytes, and
+    rows made for other layers are not used."""
+    a = compose_args_to(synthetic_compose("tails", 0), "cpu")
+    dev = torch.device("cpu")
+    args = (a["images"], a["slabs"], a["dyns"], a["ops"], a["tiles_y"], dev)
+    n_static = sum(op[0] in ("img", "slab") for op in a["ops"])
+    assert 0 < n_static < len(a["ops"])
+    built = CK._static_row.built
+    fresh, keep_fresh = CK.op_descriptors(*args)
+    assert CK._static_row.built == built + n_static
+    rows = CK.PlanRows(a["images"], a["slabs"], a["ops"], dev)
+    assert CK._static_row.built == built + 2 * n_static
+    assert len(rows.rows) == n_static
+    assert rows.serves(a["images"], a["slabs"], dev)
+    for _ in range(3):                       # three frames of the plan
+        desc, keep = CK.op_descriptors(*args, rows)
+        assert desc.tobytes() == fresh.tobytes()
+        assert [t.data_ptr() for t in keep] == \
+            [t.data_ptr() for t in keep_fresh]
+    assert CK._static_row.built == built + 2 * n_static
+    # the same values in other tensors: another plan's layers
+    other = tuple(t.clone() for t in a["images"])
+    assert not rows.serves(other, a["slabs"], dev)
+    desc, _ = CK.op_descriptors(other, *args[1:], rows)
+    assert CK._static_row.built == built + 3 * n_static
+    assert desc["src"][0] == other[0].data_ptr() != fresh["src"][0]
+    # the checks that guard the kernel's reads hold at plan build
+    with pytest.raises(ValueError, match="compose_tiles"):
+        CK.PlanRows((a["images"][0].float(),) + a["images"][1:], a["slabs"],
+                    a["ops"], dev)

@@ -183,3 +183,170 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setitem(K._LIB, "lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         K.build()
+
+
+# ---- the extent of a command: the kernels skip by it ---------------------------
+
+EXT_W, EXT_H = 256, 128     # 2 x 2 tiles
+
+
+def _clip_rows(rng, n, boxes):
+    """Clip rects (n, 4): a third wide open, the rest cutting their
+    command's box somewhere inside it."""
+    clips = np.tile(np.array([-1e6, -1e6, 1e6, 1e6], np.float32), (n, 1))
+    for i in range(n):
+        if i % 3 == 0:
+            continue
+        x0, y0, x1, y1 = boxes[i]
+        cx = np.sort(rng.uniform(x0 - 4.0, x1 + 4.0, 2))
+        cy = np.sort(rng.uniform(y0 - 4.0, y1 + 4.0, 2))
+        clips[i] = (cx[0], cy[0], cx[1], cy[1])
+    return clips
+
+
+def _random_class_tables(ci: int, seed: int, n: int = 12):
+    """Seeded commands of class `ci` on an EXT_W x EXT_H frame, with the
+    cases the extent has a rule for: a capsule and a bordered rounded rect
+    (shapes), a glyph scaled below the point where its coverage outside the
+    quad vanishes (w / uw < 0.04375), clips that cut the quad."""
+    rng = np.random.default_rng(1000 * ci + seed)
+    x = rng.uniform(-10.0, EXT_W - 20.0, n).astype(np.float32)
+    y = rng.uniform(-10.0, EXT_H - 20.0, n).astype(np.float32)
+    w = rng.uniform(2.0, 70.0, n).astype(np.float32)
+    h = rng.uniform(2.0, 50.0, n).astype(np.float32)
+    if ci == 0:
+        t0 = np.zeros((n, 16), np.float32)
+        t0[:, 1], t0[:, 2], t0[:, 3], t0[:, 4] = x, y, w, h
+        t0[:, 5] = rng.uniform(0.0, 12.0, n)           # radius
+        t0[:, 6] = np.where(np.arange(n) % 2 == 0, 0.0,
+                            rng.uniform(0.5, 4.0, n))   # border width
+        t0[:, 7:15] = rng.uniform(0.2, 1.0, (n, 8))
+        seg = np.arange(n) % 4 == 1                     # capsules
+        t0[seg, 0] = 1.0
+        t0[seg, 3] = x[seg] + rng.uniform(-40.0, 40.0, seg.sum())
+        t0[seg, 4] = y[seg] + rng.uniform(-30.0, 30.0, seg.sum())
+        t0[seg, 5] = rng.uniform(0.5, 6.0, seg.sum())   # half width
+        far_x = np.where(seg, t0[:, 3], x + w)
+        far_y = np.where(seg, t0[:, 4], y + h)
+        boxes = np.stack([np.minimum(x, far_x), np.minimum(y, far_y),
+                          np.maximum(x, far_x), np.maximum(y, far_y)], 1)
+        tables = (t0, _clip_rows(rng, n, boxes))
+    else:
+        t0 = np.zeros((n, 8), np.float32)
+        t0[:, 0], t0[:, 1], t0[:, 2], t0[:, 3] = x, y, w, h
+        t0[:, 4] = rng.integers(0, 3, n) * 64.0
+        t0[:, 5] = rng.integers(0, 2, n) * 64.0
+        t0[:, 6] = rng.uniform(8.0, 64.0, n)
+        t0[:, 7] = rng.uniform(8.0, 64.0, n)
+        if ci == 1:
+            # tiny glyphs: 8 * (w / uw) / 0.7 < 0.5, ink all over the clip
+            t0[:3, 2], t0[:3, 6] = (1.5, 2.0, 0.9), (48.0, 64.0, 40.0)
+            assert (t0[:3, 2] / t0[:3, 6] < 0.04375).all()
+        boxes = np.stack([x, y, x + t0[:, 2], y + h], 1)
+        clips = _clip_rows(rng, n, boxes)
+        if ci == 1:
+            colors = rng.uniform(0.2, 1.0, (n, 4)).astype(np.float32)
+            tables = (t0, colors, clips)
+        else:
+            tables = (t0, clips)
+    return tuple(torch.from_numpy(np.ascontiguousarray(t, np.float32))
+                 for t in tables)
+
+
+def _extent_case(ci: int, seed: int):
+    """Every command of the seeded tables composited alone over a random
+    canvas by the plain step → (tables, extents (N, 4), changed (N, H, W)
+    bool: the pixels whose bits the command changed, inside (N, H, W) bool:
+    the pixel centres inside its extent)."""
+    tables = _random_class_tables(ci, seed)
+    rng = np.random.default_rng(77 + seed)
+    ftex = torch.from_numpy(rng.integers(0, 256, (128, 192)).astype(
+        np.float32))
+    atlas = torch.from_numpy(rng.integers(0, 256, (128, 192, 4)).astype(
+        np.float32))
+    ext = K.command_extents(ci, tables)
+    step = K.class_step(ci, tables, ftex, atlas)
+    ty, tx = EXT_H // K.TILE_H, EXT_W // K.TILE_W
+    canvas = torch.from_numpy(rng.uniform(0.0, 1.0, (
+        ty * tx, 4, K.TILE_H, K.TILE_W)).astype(np.float32))
+    px = torch.arange(EXT_W, dtype=torch.float32) + 0.5
+    py = torch.arange(EXT_H, dtype=torch.float32) + 0.5
+    changed, inside = [], []
+    for n in range(tables[0].shape[0]):
+        grid = K._TileGrid(ty, tx, "cpu")
+        grid.fb = canvas.clone()
+        grid.scan(torch.full((ty * tx, 1), n, dtype=torch.int32), step)
+        before = K._TileGrid(ty, tx, "cpu")
+        before.fb = canvas
+        a = grid.image(EXT_H, EXT_W).contiguous().view(torch.int32)
+        b = before.image(EXT_H, EXT_W).contiguous().view(torch.int32)
+        changed.append((a != b).any(dim=2))
+        x0, y0, x1, y1 = ext[n]
+        inside.append(((py >= y0) & (py <= y1))[:, None]
+                      & ((px >= x0) & (px <= x1))[None, :])
+    return tables, ext, torch.stack(changed), torch.stack(inside)
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+@pytest.mark.parametrize("ci", (0, 1, 2))
+def test_extent_bounds_every_bit_a_command_changes(ci, seed):
+    """Outside `command_extents` the plain step's coverage is exactly 0:
+    compositing the command there leaves every bit of the canvas as it was,
+    so a kernel that skips by the extent changes nothing."""
+    tables, ext, changed, inside = _extent_case(ci, seed)
+    assert ext.shape == (tables[0].shape[0], 4) and ext.dtype == torch.float32
+    assert not (changed & ~inside).any(), (
+        ci, seed, torch.nonzero(changed & ~inside)[:4])
+    # the commands do ink, and the extent is not the whole frame for most
+    assert changed.flatten(1).any(dim=1).float().mean() > 0.6
+    assert inside.flatten(1).float().mean(dim=1).median() < 0.5
+
+
+def test_extent_of_a_tiny_glyph_is_its_clip_alone():
+    """A glyph with 8 * (w / uw) / 0.7 < 0.5 still covers outside its quad
+    (the reference's coverage of a zero texel there is not 0), so only its
+    clip bounds it; one at the threshold or above is bounded by its quad
+    grown by a texel."""
+    glyphs = torch.tensor([[40.0, 30.0, 1.5, 3.0, 0.0, 0.0, 48.0, 48.0],
+                           [40.0, 30.0, 12.0, 16.0, 0.0, 0.0, 48.0, 48.0]])
+    colors = torch.ones((2, 4))
+    clips = torch.tensor([[10.0, 5.0, 200.0, 100.0]] * 2)
+    ext = K.command_extents(1, (glyphs, colors, clips))
+    assert ext[0].tolist() == [10.0, 5.0, 200.0, 100.0]
+    grow = 12.0 / 48.0 + K.EXTENT_PAD
+    assert ext[1].tolist() == pytest.approx(
+        [40.0 - grow, 30.0 - 16.0 / 48.0 - K.EXTENT_PAD, 52.0 + grow,
+         46.0 + 16.0 / 48.0 + K.EXTENT_PAD])
+    # and the tiny one does ink far outside its quad
+    ftex = torch.zeros((64, 64))
+    fb = torch.zeros((1, 4, K.TILE_H, K.TILE_W))
+    px1 = (torch.arange(K.TILE_W, dtype=torch.float32) + 0.5)[None]
+    py1 = (torch.arange(K.TILE_H, dtype=torch.float32) + 0.5)[None]
+    out = K._glyph_cmd(fb, px1, py1, glyphs[:1], colors[:1], clips[:1], ftex,
+                       px1[:, None, :], py1[:, :, None])
+    assert out[0, 3, 50, 100] > 0.1
+
+
+@pytest.mark.parametrize("ci", (0, 1, 2))
+def test_extent_tile_pixels_counts_the_centres_inside(ci):
+    """`extent_tile_pixels`, which the smoke test's bound is counted with:
+    the pixel centres of a tile inside an extent, for every (command,
+    tile) pair."""
+    tables, ext, _, inside = _extent_case(ci, 0)
+    ty, tx = EXT_H // K.TILE_H, EXT_W // K.TILE_W
+    n = ext.shape[0]
+    tile = torch.arange(ty * tx).repeat(n)
+    got = K.extent_tile_pixels(ext.repeat_interleave(ty * tx, dim=0), tile,
+                               tx).reshape(n, ty, tx)
+    want = inside.reshape(n, ty, K.TILE_H, tx, K.TILE_W).sum(dim=(2, 4))
+    assert torch.equal(got, want)
+    assert 0 < int(got.sum()) < n * EXT_W * EXT_H
+
+
+def test_extent_tile_pixels_stops_at_the_frames_ragged_edge():
+    ext = torch.tensor([[-1e6, -1e6, 1e6, 1e6]] * 4)
+    tile = torch.arange(4)
+    assert K.extent_tile_pixels(ext, tile, 2).tolist() == [64 * 128] * 4
+    assert K.extent_tile_pixels(ext, tile, 2, height=100, width=200
+                                ).tolist() == [64 * 128, 64 * 72, 36 * 128,
+                                               36 * 72]

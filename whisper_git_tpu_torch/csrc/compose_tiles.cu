@@ -22,23 +22,43 @@
 //
 // What bounds it on this card: bytes. A frame reads 8 B a pixel of every
 // covered layer tile and slab crop and writes 4 B a pixel; the arithmetic
-// is four multiply-adds a pixel a layer plus the few inline shapes.
+// is four multiply-adds a pixel a layer plus the few inline shapes. The
+// kernel is short (tens of microseconds), so what it waited for was its
+// slowest CTA, a tile under both slabs and the chrome, walking its ops one
+// load latency after another, and before that its own descriptors' upload.
 //
 // What the design does about it:
-//  * layers are interleaved RGBA i16, one 8-byte load a pixel, a warp
-//    reading 256 contiguous bytes of one row; a slab crop is a row offset
-//    (no realignment pass), and a tile outside an op's rect or column
-//    range reads nothing, so traffic follows ink, not layer count;
-//  * one CTA a tile, 512 threads x 16 pixels, RGB in registers across the
-//    whole op list, one write of the frame with the ragged edge cropped;
-//  * the op list depends on the scene, so it is a flat array of descriptors
-//    in device memory that every thread of the CTA reads alike (as the
-//    blocks kernel does); reads are bounded by each layer's pixel extent;
+//  * layers are interleaved RGBA i16; a thread owns two neighbouring pixels
+//    of a row and loads both with one 16-byte load (two 8-byte loads where
+//    a layer's width is odd), a warp reading 512 contiguous bytes; a slab
+//    crop is a row offset (no realignment pass), and a CTA outside an op's
+//    rect or column range reads nothing, so traffic follows ink, not layer
+//    count;
+//  * a CTA owns a strip of rows of a tile, 128 threads (8 rows: eight CTAs
+//    a tile, 1040 a 1280x800 frame, several resident on an SM), so one
+//    CTA's stores overlap another's loads and the tiles under every layer
+//    spread over more SMs; RGB stays in registers across the whole op list,
+//    one write of the frame, 8 bytes a thread a row, the ragged edge
+//    cropped;
+//  * the op list is walked one op ahead: the loads of op b + 1 are started
+//    before op b is blended, so a CTA under five layers waits for about one
+//    load latency, not five. What an op does not cover is fetched as zeros,
+//    a transparent source, whose blend `0 + fb * (1 - 0)` is the identity;
+//  * the op list depends on the scene, and rides in the launch: up to
+//    MAX_INLINE_OPS descriptors by value in the parameter block, read from
+//    the parameter space by every thread alike (no allocation, no upload,
+//    no wait); a longer list is a flat array in device memory, as before;
+//    reads are bounded by each layer's pixel extent;
 //  * the inline tail is `shape_step` of raster_steps.cuh, the same code as
-//    in the two rasterizers, on a copy of the column centre shifted to the
-//    sub-grid; the library is built with --fmad=false, so `src + fb * (1 -
-//    a)` is a multiply and an add as in the plain PyTorch version.
+//    in the two rasterizers, once for each of the thread's two columns, on
+//    column centres shifted to the sub-grid, with the command's extent in
+//    the same shifted coordinates; the library is built with --fmad=false,
+//    so `src + fb * (1 - a)` is a multiply and an add as in the plain
+//    PyTorch version.
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 #include "raster_steps.cuh"
 
@@ -49,6 +69,9 @@ constexpr int OP_SLAB = 1;
 constexpr int OP_DYNI = 2;
 constexpr int OP_DYN = 3;
 constexpr float I16_INV = (float)(1.0 / 32767.0);
+constexpr int MAX_INLINE_OPS = 48;     // descriptors that ride in the launch
+constexpr int COMPOSE_THREADS = 128;   // 64 pixel pairs across, 2 rows
+constexpr int PAIRS = TILE_W / 2;
 
 // One op. Mirrored by _OP_DESC in render/compose_kernel.py.
 struct ComposeOp {
@@ -68,17 +91,19 @@ struct ComposeOp {
 
 // Mirrored by _ComposeParams in render/compose_kernel.py.
 struct ComposeParams {
-  const ComposeOp* ops;   // device memory, z order
-  int n_ops;
+  const ComposeOp* ops;   // device memory, z order; read when
+  int n_ops;              // n_ops > MAX_INLINE_OPS
   int n_starts;
   const int* starts;      // (n_starts,) first slab row of the frame
   float bg_r, bg_g, bg_b;
   int tiles_x, tiles_y, height, width;
   unsigned char* out;     // (height, width, 4) u8
+  ComposeOp inline_ops[MAX_INLINE_OPS];
 };
 
 // Premultiplied source over the accumulator (RGB only: the frame is opaque).
-__device__ __forceinline__ void over_src(Pixels& f, int i, float sr, float sg,
+template <class PX>
+__device__ __forceinline__ void over_src(PX& f, int i, float sr, float sg,
                                          float sb, float sa) {
   const float inv = 1.0f - sa;
   f.r[i] = sr + f.r[i] * inv;
@@ -86,111 +111,275 @@ __device__ __forceinline__ void over_src(Pixels& f, int i, float sr, float sg,
   f.b[i] = sb + f.b[i] * inv;
 }
 
-__device__ __forceinline__ void over_i16(Pixels& f, int i, short4 s) {
-  over_src(f, i, (float)s.x * I16_INV, (float)s.y * I16_INV,
-           (float)s.z * I16_INV, (float)s.w * I16_INV);
+// Whether pixel pairs of an (h, w, 4) i16 layer at even columns lie on
+// 16-byte addresses in every row.
+__device__ __forceinline__ bool pair_aligned(const void* src, int w) {
+  return (w & 1) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-    compose_tiles_kernel(const __grid_constant__ ComposeParams p) {
-  const int t = blockIdx.x;
-  const int ti = t / p.tiles_x, tj = t % p.tiles_x;
-  Pixels f;
-  const int col = threadIdx.x % TILE_W;
-  f.row0 = threadIdx.x / TILE_W;
-  const int ox = tj * TILE_W;
-  const int oy = ti * TILE_H;
-  const float px = ((float)col + (float)ox) + 0.5f;
-  f.px = px;
-  f.oy = (float)oy;
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    f.r[i] = p.bg_r;
-    f.g[i] = p.bg_g;
-    f.b[i] = p.bg_b;
-    f.a[i] = 1.0f;
-  }
+// Op `b` of the list, by value: from the parameter space where the list
+// rides in the launch, else from the array in device memory.
+__device__ __forceinline__ ComposeOp op_at(const ComposeParams& p, int b) {
+  if (p.n_ops <= MAX_INLINE_OPS) return p.inline_ops[b];
+  return p.ops[b];
+}
 
-#pragma unroll 1
-  for (int b = 0; b < p.n_ops; ++b) {
-    const ComposeOp d = p.ops[b];
-    if (d.kind == OP_IMG) {
-      const int ly0 = (ti - d.ty0) * TILE_H;
-      const int lx0 = (tj - d.tx0) * TILE_W;
-      if (ly0 < 0 || lx0 < 0 || ly0 >= d.h || lx0 >= d.w) continue;
-      const int lx = lx0 + col;
-      if (lx >= d.w) continue;
-      const short4* src = reinterpret_cast<const short4*>(d.src);
+// What an "img" or "slab" op brings to this thread's pixels: for each of its
+// rows the pixel pair (x: r, g of the even column in 16 bits each, y: b, a;
+// z, w: the odd column), all zero, which is transparent, wherever the op
+// does not cover the pixel. Blending a transparent source computes
+// `0 + fb * (1 - 0)` and leaves the accumulator as it is, so nothing else
+// has to remember what was covered.
+template <int N_ROWS>
+struct Fetched {
+  int4 v[N_ROWS];
+  bool any;   // false: the op is of another kind, or misses every pixel
+};
+
+// This thread's place in the frame.
+struct Place {
+  int ti, tj;       // tile row and column
+  int oy;           // first row of the CTA's strip, frame px
+  int strip_y;      // the same inside the tile
+  int ox, col;      // tile origin x; this thread's even column in the tile
+  int row0;         // this thread's first row below oy
+};
+
+// Start the loads of op `d` for this thread's rows. Nothing here waits for
+// them: the caller fetches the next op before it blends the current one.
+template <int N_ROWS>
+__device__ __forceinline__ void fetch(const ComposeOp& d,
+                                      const ComposeParams& p,
+                                      const Place& at, Fetched<N_ROWS>& out) {
+  out.any = false;
+  const int h = d.h, w = d.w;
+  int lx, y0;
+  float cy0 = -__int_as_float(0x7f800000), cy1 = __int_as_float(0x7f800000);
+  if (d.kind == OP_IMG) {
+    lx = (at.tj - d.tx0) * TILE_W + at.col;
+    y0 = (at.ti - d.ty0) * TILE_H + at.strip_y;
+    if (at.ti < d.ty0 || at.tj < d.tx0 || y0 >= h || lx >= w) return;
+  } else if (d.kind == OP_SLAB) {
+    lx = at.ox + at.col;
+    if (lx >= w || d.slab >= p.n_starts) return;
+    y0 = p.starts[d.slab] + at.oy;
+    cy0 = d.cy0;
+    cy1 = d.cy1;
+  } else {
+    return;
+  }
+  out.any = true;
+  const short4* src = reinterpret_cast<const short4*>(d.src);
+  const bool vec = pair_aligned(src, w), has1 = lx + 1 < w;
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int ly = ly0 + f.row0 + i * ROW_STRIDE;
-        if (ly < d.h) over_i16(f, i, src[(size_t)ly * d.w + lx]);
-      }
-    } else if (d.kind == OP_SLAB) {
-      const int lx = ox + col;
-      if (lx >= d.w || d.slab >= p.n_starts) continue;
-      const int start = p.starts[d.slab];
-      const short4* src = reinterpret_cast<const short4*>(d.src);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float py = f.py(i);
-        const int sy = start + oy + f.row0 + i * ROW_STRIDE;
-        // Outside the y clip the source and its alpha are multiplied by 0,
-        // and `0 + fb * (1 - 0)` leaves the pixel as it is.
-        if (py >= d.cy0 && py <= d.cy1 && sy >= 0 && sy < d.h) {
-          over_i16(f, i, src[(size_t)sy * d.w + lx]);
-        }
-      }
-    } else if (d.kind == OP_DYNI) {
-      if (tj < d.tx0 || tj >= d.tx0 + d.ts || ti >= p.tiles_y) continue;
-      const int tsub = ti * d.ts + (tj - d.tx0);
-      const int n = min(d.counts[tsub], d.k);
-      const int* row = d.bins + (size_t)tsub * d.k;
-      const float* shapes = reinterpret_cast<const float*>(d.src);
-      // The tail's tables and bins live in the sub-grid's coordinates.
-      f.px = px - (float)(d.tx0 * TILE_W);
-#pragma unroll 1
-      for (int k = 0; k < n; ++k) {
-        const int idx = row[k];
-        if (idx < 0) continue;
-        shape_step(f, shapes + (size_t)idx * 16, d.clips + (size_t)idx * 4);
-      }
-      f.px = px;
-    } else {
-      const int lx0 = (tj - d.tx0) * TILE_W;
-      if (tj < d.tx0 || tj >= d.tx0 + d.ts || lx0 >= d.w || oy >= d.h) {
-        continue;
-      }
-      const int lx = lx0 + col;
-      if (lx >= d.w) continue;
-      const float4* src = reinterpret_cast<const float4*>(d.src);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int ly = oy + f.row0 + i * ROW_STRIDE;
-        if (ly < d.h) {
-          const float4 s = src[(size_t)ly * d.w + lx];
-          over_src(f, i, s.x, s.y, s.z, s.w);
+  for (int i = 0; i < N_ROWS; ++i) {
+    const int r = at.row0 + i * 2;
+    const float py = ((float)(r + at.oy)) + 0.5f;
+    const int sy = y0 + r;
+    int4 v = make_int4(0, 0, 0, 0);
+    // Outside a slab's y clip the source and its alpha are multiplied by 0:
+    // transparent too.
+    if (py >= cy0 && py <= cy1 && sy >= 0 && sy < h) {
+      const short4* row = src + (size_t)sy * w + lx;
+      if (vec) {
+        v = __ldg(reinterpret_cast<const int4*>(row));
+      } else {
+        const int2 a = __ldg(reinterpret_cast<const int2*>(row));
+        v.x = a.x;
+        v.y = a.y;
+        if (has1) {
+          const int2 c = __ldg(reinterpret_cast<const int2*>(row + 1));
+          v.z = c.x;
+          v.w = c.y;
         }
       }
     }
+    out.v[i] = v;
+  }
+}
+
+// One i16 pixel in two 32-bit words over pixel i of f.
+template <class PX>
+__device__ __forceinline__ void over_i16(PX& f, int i, int rg, int ba) {
+  over_src(f, i, (float)(short)(rg & 0xffff) * I16_INV,
+           (float)(short)(rg >> 16) * I16_INV,
+           (float)(short)(ba & 0xffff) * I16_INV,
+           (float)(short)(ba >> 16) * I16_INV);
+}
+
+// N_ROWS rows a thread, two row lanes: a CTA owns 2 * N_ROWS rows of a tile.
+template <int N_ROWS>
+__global__ void __launch_bounds__(COMPOSE_THREADS,
+                                  N_ROWS <= 2 ? 6 : N_ROWS <= 4 ? 4 : 2)
+    compose_tiles_kernel(const __grid_constant__ ComposeParams p) {
+  using PX = PixelsT<N_ROWS, 2>;
+  constexpr int STRIP_H = 2 * N_ROWS;
+  constexpr int STRIPS = TILE_H / STRIP_H;
+  const int t = blockIdx.x / STRIPS, q = blockIdx.x % STRIPS;
+  Place at;
+  at.ti = t / p.tiles_x;
+  at.tj = t % p.tiles_x;
+  at.col = 2 * (threadIdx.x % PAIRS);
+  at.row0 = threadIdx.x / PAIRS;
+  at.ox = at.tj * TILE_W;
+  at.strip_y = q * STRIP_H;
+  at.oy = at.ti * TILE_H + at.strip_y;
+  const int ti = at.ti, tj = at.tj, col = at.col, row0 = at.row0;
+  const int ox = at.ox, oy = at.oy;
+  const float px0 = ((float)col + (float)ox) + 0.5f;
+  const float px1 = ((float)(col + 1) + (float)ox) + 0.5f;
+  PX f0, f1;   // the even column, the odd column
+  f0.row0 = f1.row0 = row0;
+  f0.px = px0;
+  f1.px = px1;
+  f0.oy = f1.oy = (float)oy;
+#pragma unroll
+  for (int i = 0; i < N_ROWS; ++i) {
+    f0.r[i] = f1.r[i] = p.bg_r;
+    f0.g[i] = f1.g[i] = p.bg_g;
+    f0.b[i] = f1.b[i] = p.bg_b;
+    f0.a[i] = f1.a[i] = 1.0f;
   }
 
+  // The op list in z order, one op ahead: the next op's layer is on its way
+  // while this one is blended. Only the kinds are carried from op to op; a
+  // tail, which is rare, reads its descriptor again.
+  const int n_ops = p.n_ops;
+  Fetched<N_ROWS> cur, nxt;
+  cur.any = false;
+  int kind = -1;
+  if (n_ops > 0) {
+    const ComposeOp d0 = op_at(p, 0);
+    kind = d0.kind;
+    fetch(d0, p, at, cur);
+  }
+#pragma unroll 1
+  for (int b = 0; b < n_ops; ++b) {
+    int kind_nxt = -1;
+    nxt.any = false;
+    if (b + 1 < n_ops) {
+      const ComposeOp d_nxt = op_at(p, b + 1);
+      kind_nxt = d_nxt.kind;
+      fetch(d_nxt, p, at, nxt);
+    }
+    if (kind == OP_IMG || kind == OP_SLAB) {
+      if (cur.any) {
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) f.a[i] = 1.0f;   // opaque: alpha 255
-  store_u8(f, ox + col, oy, p.out, p.height, p.width);
+        for (int i = 0; i < N_ROWS; ++i) {
+          over_i16(f0, i, cur.v[i].x, cur.v[i].y);
+          over_i16(f1, i, cur.v[i].z, cur.v[i].w);
+        }
+      }
+    } else if (kind == OP_DYNI) {
+      const ComposeOp d = op_at(p, b);
+      if (tj >= d.tx0 && tj < d.tx0 + d.ts && ti < p.tiles_y) {
+        const int tsub = ti * d.ts + (tj - d.tx0);
+        const int n = min(d.counts[tsub], d.k);
+        const int* row = d.bins + (size_t)tsub * d.k;
+        const float* shapes = reinterpret_cast<const float*>(d.src);
+        const float* clips = d.clips;
+        // The tail's tables and bins live in the sub-grid's coordinates,
+        // and so does each command's extent.
+        const float shift = (float)(d.tx0 * TILE_W);
+        f0.px = px0 - shift;
+        f1.px = px1 - shift;
+#pragma unroll 1
+        for (int k = 0; k < n; ++k) {
+          const int idx = row[k];
+          if (idx < 0) continue;
+          const float* c = shapes + (size_t)idx * 16;
+          const float* clip = clips + (size_t)idx * 4;
+          const Extent e = command_extent(0, c, clip);
+          shape_step(f0, c, clip, e);
+          shape_step(f1, c, clip, e);
+        }
+        f0.px = px0;
+        f1.px = px1;
+      }
+    } else {
+      const ComposeOp d = op_at(p, b);
+      const int lx = (tj - d.tx0) * TILE_W + col;
+      const int h = d.h, w = d.w;
+      if (tj >= d.tx0 && tj < d.tx0 + d.ts && lx < w && oy < h) {
+        const float4* src = reinterpret_cast<const float4*>(d.src);
+        const bool has1 = lx + 1 < w;
+#pragma unroll
+        for (int i = 0; i < N_ROWS; ++i) {
+          const int ly = oy + row0 + i * 2;
+          if (ly < h) {
+            const float4* pix = src + (size_t)ly * w + lx;
+            const float4 s0 = __ldg(pix);
+            over_src(f0, i, s0.x, s0.y, s0.z, s0.w);
+            if (has1) {
+              const float4 s1 = __ldg(pix + 1);
+              over_src(f1, i, s1.x, s1.y, s1.z, s1.w);
+            }
+          }
+        }
+      }
+    }
+    kind = kind_nxt;
+    cur = nxt;
+  }
+
+  // Quantize and store the pair, alpha 255: 8 bytes a thread a row where
+  // the frame's width is even, the ragged edge cropped.
+  const int x = ox + col;
+  if (x >= p.width) return;
+  const bool has1 = x + 1 < p.width, vec = (p.width & 1) == 0;
+  uchar4* o4 = reinterpret_cast<uchar4*>(p.out);
+#pragma unroll
+  for (int i = 0; i < N_ROWS; ++i) {
+    const int y = oy + row0 + i * 2;
+    if (y < p.height) {
+      const uchar4 a = make_uchar4(quantize_u8(f0.r[i]), quantize_u8(f0.g[i]),
+                                   quantize_u8(f0.b[i]), 255);
+      const uchar4 c = make_uchar4(quantize_u8(f1.r[i]), quantize_u8(f1.g[i]),
+                                   quantize_u8(f1.b[i]), 255);
+      uchar4* at = o4 + (size_t)y * p.width + x;
+      if (vec) {
+        uint2 v;
+        v.x = (unsigned)a.x | (unsigned)a.y << 8 | (unsigned)a.z << 16
+              | (unsigned)a.w << 24;
+        v.y = (unsigned)c.x | (unsigned)c.y << 8 | (unsigned)c.z << 16
+              | (unsigned)c.w << 24;
+        *reinterpret_cast<uint2*>(at) = v;
+      } else {
+        at[0] = a;
+        if (has1) at[1] = c;
+      }
+    }
+  }
 }
 
 }  // namespace raster
 
 extern "C" {
 
-// Launch one CTA per tile on `stream`, on the calling thread's current
-// device. Returns cudaGetLastError(): a launch the runtime refused never
-// runs, and a synchronize would not say.
+// Launch 64 / (2 * rows) CTAs a tile on `stream`, on the calling thread's
+// current device; `rows` (2, 4 or 8) is the rows a thread owns. Returns
+// cudaGetLastError(): a launch the runtime refused never runs, and a
+// synchronize would not say.
 int compose_tiles_launch(const raster::ComposeParams* params, int n_tiles,
-                         void* stream) {
-  raster::compose_tiles_kernel<<<n_tiles, raster::THREADS, 0,
-                                 (cudaStream_t)stream>>>(*params);
+                         int rows, void* stream) {
+  using namespace raster;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (rows) {
+    case 2:
+      compose_tiles_kernel<2><<<n_tiles * 16, COMPOSE_THREADS, 0, s>>>(
+          *params);
+      break;
+    case 4:
+      compose_tiles_kernel<4><<<n_tiles * 8, COMPOSE_THREADS, 0, s>>>(
+          *params);
+      break;
+    case 8:
+      compose_tiles_kernel<8><<<n_tiles * 4, COMPOSE_THREADS, 0, s>>>(
+          *params);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -201,5 +390,11 @@ const char* compose_tiles_error_string(int code) {
 int compose_tiles_params_size() { return (int)sizeof(raster::ComposeParams); }
 
 int compose_tiles_desc_size() { return (int)sizeof(raster::ComposeOp); }
+
+int compose_tiles_inline_offset() {
+  return (int)offsetof(raster::ComposeParams, inline_ops);
+}
+
+int compose_tiles_max_inline() { return raster::MAX_INLINE_OPS; }
 
 }  // extern "C"

@@ -8,10 +8,24 @@
 // the library is built with --fmad=false so no multiply-add is contracted
 // and every rounding matches the plain PyTorch version.
 //
-// Layout: a block of THREADS threads owns one tile. Thread i owns column
-// i % TILE_W and rows i / TILE_W + ROW_STRIDE * r for r < ROWS, so a warp
-// covers 32 neighbouring columns of one row (coalesced stores) and the
-// x-dependent half of every command is computed once per thread.
+// Layout: a thread owns one column and ROWS rows of it, ROW_STRIDE apart
+// (`PixelsT`), and the 32 threads of a warp own neighbouring columns of the
+// same rows, so stores coalesce, the x-dependent half of every command is
+// computed once per thread, and a test on a row or on the warp's columns is
+// uniform across the warp. The packed kernel's block of THREADS threads owns
+// a whole tile (thread i: column i % TILE_W, rows i / TILE_W + ROW_STRIDE *
+// r); the blocks kernel gives a block a unit of a tile (a strip of its
+// columns by a band of its rows) and the compose kernel a strip of its rows,
+// on the same struct.
+//
+// Work follows ink: `command_extent` gives the rectangle of pixel centres
+// outside which a command's coverage is exactly 0, so that `over` is the
+// identity there, and every step function skips the command for a warp whose
+// columns or rows miss it, and the rows outside it. Skipping changes no bit.
+// What bounds the step functions on this card is their scalar f32 arithmetic
+// (a division, a `sqrtf`, no contracted multiply-add); the extent removes
+// the part of it that multiplied by 0, and a shape without a border skips
+// the ring's blend, which multiplied by 0 too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,17 +71,23 @@ struct RasterParams {
   unsigned char* out;                // (height, width, 4)
 };
 
-// This thread's pixels: one column, ROWS rows, premultiplied RGBA.
-struct Pixels {
+// This thread's pixels: one column, N_ROWS rows STRIDE apart, premultiplied
+// RGBA. Row i lies at row0 + i * STRIDE below `oy`.
+template <int N_ROWS, int STRIDE>
+struct PixelsT {
+  static constexpr int ROWS = N_ROWS;
+  static constexpr int ROW_STRIDE = STRIDE;
   float px;   // column centre, screen px
-  float oy;   // tile origin y
-  int row0;   // first row inside the tile
-  float r[ROWS], g[ROWS], b[ROWS], a[ROWS];
+  float oy;   // origin y of the rows (a tile's, or a row strip's)
+  int row0;   // first row below the origin
+  float r[N_ROWS], g[N_ROWS], b[N_ROWS], a[N_ROWS];
 
   __device__ __forceinline__ float py(int i) const {
-    return ((float)(row0 + i * ROW_STRIDE) + oy) + 0.5f;
+    return ((float)(row0 + i * STRIDE) + oy) + 0.5f;
   }
 };
+
+using Pixels = PixelsT<ROWS, ROW_STRIDE>;
 
 __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
@@ -78,7 +98,8 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // Premultiplied over: colour (cr, cg, cb) at coverage ca onto pixel i.
-__device__ __forceinline__ void over(Pixels& f, int i, float cr, float cg,
+template <class PX>
+__device__ __forceinline__ void over(PX& f, int i, float cr, float cg,
                                      float cb, float ca) {
   const float inv = 1.0f - ca;
   f.r[i] = cr * ca + f.r[i] * inv;
@@ -121,12 +142,82 @@ __device__ __forceinline__ float sample_coord(float p, float origin,
   return (p - origin) / fmaxf(extent, 1e-6f) * atlas_extent - 0.5f;
 }
 
+// The rectangle of pixel centres, bounds inclusive, outside which a
+// command's coverage is exactly 0. Mirrored by `command_extents` in
+// render/raster_kernel.py: keep the two in step.
+struct Extent {
+  float x0, y0, x1, y1;
+};
+
+constexpr float EXTENT_PAD = 1.0f;   // one pixel more, against rounding
+
+// cls 0: a shape (c: its 16 columns). Its box grown by 0.5 px, a capsule's
+// segment box by half width + 0.5 px: beyond it d >= 0.5, so `inner` is 0
+// and the border's coverage carries `inner` as a factor.
+// cls 1, 2: a glyph or image quad (c: x, y, w, h, u, v, uw, uh) grown by one
+// texel (w / uw px): outside it both taps of an axis weigh 0. An image's
+// source is then 0. A glyph's `enc` is 0 and its distance 8 * screen_scale,
+// which gives coverage 0 only when 8 * screen_scale / 0.7 >= 0.5; a glyph
+// scaled below that is bounded by its clip alone.
+// Every class: cut by the clip rect, whose mask multiplies the coverage.
+__device__ __forceinline__ Extent command_extent(
+    int cls, const float* __restrict__ c, const float* __restrict__ clip) {
+  const float inf = __int_as_float(0x7f800000);
+  float x0, y0, x1, y1;
+  if (cls == 0) {
+    if (c[0] == 1.0f) {
+      const float g = fmaxf(c[5], 0.0f) + (0.5f + EXTENT_PAD);
+      x0 = fminf(c[1], c[3]) - g;
+      x1 = fmaxf(c[1], c[3]) + g;
+      y0 = fminf(c[2], c[4]) - g;
+      y1 = fmaxf(c[2], c[4]) + g;
+    } else {
+      const float g = 0.5f + EXTENT_PAD;
+      x0 = fminf(c[1], c[1] + c[3]) - g;
+      x1 = fmaxf(c[1], c[1] + c[3]) + g;
+      y0 = fminf(c[2], c[2] + c[4]) - g;
+      y1 = fmaxf(c[2], c[2] + c[4]) + g;
+    }
+  } else {
+    const float w = fmaxf(c[2], 1e-6f), h = fmaxf(c[3], 1e-6f);
+    float gx = c[6] > 0.0f ? w / c[6] + EXTENT_PAD : inf;
+    float gy = c[7] > 0.0f ? h / c[7] + EXTENT_PAD : inf;
+    if (cls == 1) {
+      const float d = SDF_SPREAD * (c[2] / fmaxf(c[6], 1e-6f));
+      if (!(d / 0.7f >= 0.5f)) gx = gy = inf;
+    }
+    x0 = c[0] - gx;
+    x1 = (c[0] + w) + gx;
+    y0 = c[1] - gy;
+    y1 = (c[1] + h) + gy;
+  }
+  Extent e;
+  e.x0 = fmaxf(x0, clip[0]);
+  e.y0 = fmaxf(y0, clip[1]);
+  e.x1 = fminf(x1, clip[2]);
+  e.y1 = fminf(y1, clip[3]);
+  return e;
+}
+
+// Whether any pixel of this warp can lie inside `e`: one of its 32 columns
+// in the x range, and its first to last row overlapping the y range. Uniform
+// across the warp; every thread of the warp must call it.
+template <class PX>
+__device__ __forceinline__ bool warp_hits(const PX& f, const Extent& e) {
+  if (!__any_sync(0xffffffffu, f.px >= e.x0 && f.px <= e.x1)) return false;
+  return f.py(PX::ROWS - 1) >= e.y0 && f.py(0) <= e.y1;
+}
+
 // Rounded rect (c[0] == 0) or capsule (c[0] == 1) with a border ring.
 // c: 16 columns (type, x|x0, y|y0, w|x1, h|y1, radius|half width,
-// border width, fill rgba, border rgba, pad).
-__device__ __forceinline__ void shape_step(Pixels& f,
+// border width, fill rgba, border rgba, pad). `e` is command_extent(0, c,
+// clip), in the coordinates of f.px.
+template <class PX>
+__device__ __forceinline__ void shape_step(PX& f,
                                            const float* __restrict__ c,
-                                           const float* __restrict__ clip) {
+                                           const float* __restrict__ clip,
+                                           const Extent& e) {
+  if (!warp_hits(f, e)) return;
   const float c0 = clip[0], c1 = clip[1], c2 = clip[2], c3 = clip[3];
   const bool is_seg = c[0] == 1.0f;
   const float hx = c[3] * 0.5f, hy = c[4] * 0.5f;
@@ -136,7 +227,7 @@ __device__ __forceinline__ void shape_step(Pixels& f,
   const float abx = bx - ax, aby = by - ay;
   const float denom = fmaxf(abx * abx + aby * aby, 1e-6f);
   const float bw = c[6];
-  const float border_on = (!is_seg && bw > 0.0f) ? 1.0f : 0.0f;
+  const bool has_border = !is_seg && bw > 0.0f;
   const float fr = c[7], fg = c[8], fb = c[9], fa = c[10];
   const float br = c[11], bg = c[12], bb = c[13], ba = c[14];
 
@@ -146,8 +237,9 @@ __device__ __forceinline__ void shape_step(Pixels& f,
   const float mx = fmaxf(qx, 0.0f);
   const float sx = (px - ax) * abx;
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
+  for (int i = 0; i < PX::ROWS; ++i) {
     const float py = f.py(i);
+    if (py < e.y0 || py > e.y1) continue;   // uniform across the warp
     const float cm = (in_x && py >= c1 && py <= c3) ? 1.0f : 0.0f;
     float d;
     if (is_seg) {
@@ -161,8 +253,12 @@ __device__ __forceinline__ void shape_step(Pixels& f,
     }
     const float inner = clamp01(0.5f - d);
     over(f, i, fr, fg, fb, inner * cm * fa);
-    const float cov_b = inner * clamp01(d + bw + 0.5f) * cm * border_on;
-    over(f, i, br, bg, bb, cov_b * ba);
+    // Without a border the ring's coverage is multiplied by 0 and its
+    // `over` is the identity: skipped, for the whole command alike.
+    if (has_border) {
+      const float cov_b = inner * clamp01(d + bw + 0.5f) * cm;
+      over(f, i, br, bg, bb, cov_b * ba);
+    }
   }
 }
 
@@ -171,10 +267,12 @@ __device__ __forceinline__ void shape_step(Pixels& f,
 // tap weights rounded to bf16, the sums in f32 (the row-resampled texels
 // stay f32 — XLA drops their bf16 round trip under jit). Each sum has the
 // same two non-zero terms as the reference's 64-term matrix products.
+template <class PX>
 __device__ __forceinline__ void glyph_step(
-    Pixels& f, const float* __restrict__ q, const float* __restrict__ col,
-    const float* __restrict__ clip, const unsigned char* __restrict__ tex,
-    int tex_h, int tex_w) {
+    PX& f, const float* __restrict__ q, const float* __restrict__ col,
+    const float* __restrict__ clip, const Extent& e,
+    const unsigned char* __restrict__ tex, int tex_h, int tex_w) {
+  if (!warp_hits(f, e)) return;
   const float x = q[0], y = q[1], w = q[2], h = q[3];
   const float u = q[4], v = q[5], uw = q[6], uh = q[7];
   const float c0 = clip[0], c1 = clip[1], c2 = clip[2], c3 = clip[3];
@@ -189,8 +287,9 @@ __device__ __forceinline__ void glyph_step(
   const Taps tx = taps(sample_coord(px, x, w, uw), uw);
   const float wx0 = bf16_round(tx.w0), wx1 = bf16_round(tx.w1);
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
+  for (int i = 0; i < PX::ROWS; ++i) {
     const float py = f.py(i);
+    if (py < e.y0 || py > e.y1) continue;   // uniform across the warp
     const float cm = (in_x && py >= c1 && py <= c3) ? 1.0f : 0.0f;
     const Taps ty = taps(sample_coord(py, y, h, uh), uh);
     const float wy0 = bf16_round(ty.w0), wy1 = bf16_round(ty.w1);
@@ -208,9 +307,12 @@ __device__ __forceinline__ void glyph_step(
 
 // RGBA image quad: bilinear taps on the atlas cell at (v, u) in f32, as
 // the reference's f32 einsum; alpha masked by the clip.
+template <class PX>
 __device__ __forceinline__ void image_step(
-    Pixels& f, const float* __restrict__ q, const float* __restrict__ clip,
-    const unsigned char* __restrict__ atlas, int atlas_h, int atlas_w) {
+    PX& f, const float* __restrict__ q, const float* __restrict__ clip,
+    const Extent& e, const unsigned char* __restrict__ atlas, int atlas_h,
+    int atlas_w) {
+  if (!warp_hits(f, e)) return;
   const float x = q[0], y = q[1], w = q[2], h = q[3];
   const float u = q[4], v = q[5], uw = q[6], uh = q[7];
   const float c0 = clip[0], c1 = clip[1], c2 = clip[2], c3 = clip[3];
@@ -223,8 +325,9 @@ __device__ __forceinline__ void image_step(
   const bool in_x = px >= c0 && px <= c2;
   const Taps tx = taps(sample_coord(px, x, w, uw), uw);
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
+  for (int i = 0; i < PX::ROWS; ++i) {
     const float py = f.py(i);
+    if (py < e.y0 || py > e.y1) continue;   // uniform across the warp
     const float cm = (in_x && py >= c1 && py <= c3) ? 1.0f : 0.0f;
     const Taps ty = taps(sample_coord(py, y, h, uh), uh);
     const uchar4 t00 = cell[(size_t)ty.j0 * atlas_w + tx.j0];
@@ -244,19 +347,20 @@ __device__ __forceinline__ void image_step(
 // Quantize this thread's pixels with clip(x * 255 + 0.5, 0, 255) and store
 // them into the interleaved (height, width, 4) u8 frame; pixels past the
 // frame's ragged edge are not written. `x` is the thread's column and `oy`
-// its tile's first row, both in frame pixels.
+// the first row of its rows' origin, both in pixels of `out`.
 __device__ __forceinline__ unsigned char quantize_u8(float v) {
   return (unsigned char)(fminf(fmaxf(v * 255.0f + 0.5f, 0.0f), 255.0f));
 }
 
-__device__ __forceinline__ void store_u8(const Pixels& f, int x, int oy,
+template <class PX>
+__device__ __forceinline__ void store_u8(const PX& f, int x, int oy,
                                          unsigned char* out, int height,
                                          int width) {
   if (x >= width) return;
   uchar4* o4 = reinterpret_cast<uchar4*>(out);
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int y = oy + f.row0 + i * ROW_STRIDE;
+  for (int i = 0; i < PX::ROWS; ++i) {
+    const int y = oy + f.row0 + i * PX::ROW_STRIDE;
     if (y < height) {
       uchar4 o;
       o.x = quantize_u8(f.r[i]);
@@ -270,16 +374,40 @@ __device__ __forceinline__ void store_u8(const Pixels& f, int x, int oy,
 
 // Store this thread's pixels unquantized into an interleaved (height,
 // width, 4) f32 image (a premultiplied RGBA layer), cropped the same way.
-__device__ __forceinline__ void store_f32(const Pixels& f, int x, int oy,
+template <class PX>
+__device__ __forceinline__ void store_f32(const PX& f, int x, int oy,
                                           float* out, int height,
                                           int width) {
   if (x >= width) return;
   float4* o4 = reinterpret_cast<float4*>(out);
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int y = oy + f.row0 + i * ROW_STRIDE;
+  for (int i = 0; i < PX::ROWS; ++i) {
+    const int y = oy + f.row0 + i * PX::ROW_STRIDE;
     if (y < height) {
       o4[(size_t)y * width + x] = make_float4(f.r[i], f.g[i], f.b[i], f.a[i]);
+    }
+  }
+}
+
+// Store this thread's pixels as an interleaved (height, width, 4) i16 layer,
+// fixed point at 1/32767: clamp(round_half_even(v * 32767), +-32767), the
+// values the compose kernel reads. Cropped the same way.
+__device__ __forceinline__ short quantize_i16(float v) {
+  return (short)min(max(__float2int_rn(v * 32767.0f), -32767), 32767);
+}
+
+template <class PX>
+__device__ __forceinline__ void store_i16(const PX& f, int x, int oy,
+                                          short* out, int height, int width) {
+  if (x >= width) return;
+  short4* o4 = reinterpret_cast<short4*>(out);
+#pragma unroll
+  for (int i = 0; i < PX::ROWS; ++i) {
+    const int y = oy + f.row0 + i * PX::ROW_STRIDE;
+    if (y < height) {
+      o4[(size_t)y * width + x] =
+          make_short4(quantize_i16(f.r[i]), quantize_i16(f.g[i]),
+                      quantize_i16(f.b[i]), quantize_i16(f.a[i]));
     }
   }
 }

@@ -20,6 +20,10 @@
 //    divergence and no scalar prefetch;
 //  * the x-dependent half of every command (clip column test, rect qx,
 //    the glyph column taps) is computed once per thread, not per pixel;
+//  * every command carries its extent (`command_extent`), and the step
+//    functions skip the warps and rows it cannot ink; the walk itself (one
+//    CTA a tile, commands fetched from device memory one by one) is as it
+//    was;
 //  * glyphs and images sample the u8 atlas with four bilinear taps instead
 //    of the reference's two resampling matrix products (which exist
 //    because TPU gathers are slow); the bf16 rounding of the tap weights
@@ -60,24 +64,29 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int k = 0; k < L.ks; ++k) {
       const int idx = sb[k];
       if (idx < 0) continue;
-      shape_step(f, L.shapes + (size_t)idx * 16, L.shape_clips + (size_t)idx * 4);
+      const float* c = L.shapes + (size_t)idx * 16;
+      const float* clip = L.shape_clips + (size_t)idx * 4;
+      shape_step(f, c, clip, command_extent(0, c, clip));
     }
     const int* ib = L.i_bins + (size_t)t * L.ki;
 #pragma unroll 1
     for (int k = 0; k < L.ki; ++k) {
       const int idx = ib[k];
       if (idx < 0) continue;
-      image_step(f, L.images + (size_t)idx * 8, L.image_clips + (size_t)idx * 4,
-                 p.image_atlas, p.atlas_h, p.atlas_w);
+      const float* q = L.images + (size_t)idx * 8;
+      const float* clip = L.image_clips + (size_t)idx * 4;
+      image_step(f, q, clip, command_extent(2, q, clip), p.image_atlas,
+                 p.atlas_h, p.atlas_w);
     }
     const int* gb = L.g_bins + (size_t)t * L.kg;
 #pragma unroll 1
     for (int k = 0; k < L.kg; ++k) {
       const int idx = gb[k];
       if (idx < 0) continue;
-      glyph_step(f, L.glyphs + (size_t)idx * 8, L.glyph_colors + (size_t)idx * 4,
-                 L.glyph_clips + (size_t)idx * 4, p.font_tex, p.font_h,
-                 p.font_w);
+      const float* q = L.glyphs + (size_t)idx * 8;
+      const float* clip = L.glyph_clips + (size_t)idx * 4;
+      glyph_step(f, q, L.glyph_colors + (size_t)idx * 4, clip,
+                 command_extent(1, q, clip), p.font_tex, p.font_h, p.font_w);
     }
   }
 

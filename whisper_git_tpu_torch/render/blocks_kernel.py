@@ -23,22 +23,42 @@ composite in z order shapes → images → glyphs. A block is
 
 With a background the canvas starts opaque and the result is the
 (H, W, 4) u8 frame; with `background=None` it starts transparent and the
-result is the (H, W, 4) f32 premultiplied RGBA layer.
+result is the (H, W, 4) premultiplied RGBA layer, f32 or, with
+`layer_i16`, the i16 fixed point at 1/32767 that the compose kernel reads
+(`quantize_i16` of the f32 layer, value for value). `tile_rect` = (ty0, tx0,
+ty1, tx1) renders only those tiles and returns the output cut to them.
 
 `render_tiles_blocks` is the entry point. A tensor on the CPU takes
 `render_tiles_blocks_plain`; a CUDA tensor launches the kernel in
 `csrc/raster_blocks.cu` (built with nvcc on first use, loaded with ctypes)
 or raises. `render_tiles_blocks.launches` counts kernel launches.
+
+What bounds the kernel on the card is the step functions' scalar f32
+arithmetic on the pixels a command inks. Its design: work follows ink
+(every command's extent, `raster_kernel.command_extents`, lets a warp skip
+the commands and rows it cannot ink, bit for bit); a CTA owns a small unit
+of a tile, `STRIP_W` columns by 4 x `ROWS_PER_THREAD` rows (32 x 16: 16
+CTAs a tile), so a busy tile spreads over many SMs; a tile's commands are
+staged in shared memory, culled to the unit, in z order; up to
+`MAX_INLINE_BLOCKS` block descriptors ride in the launch's parameter block
+by value (no allocation, no upload), a longer list goes through a device
+array; the i16 and tile-rect epilogues write a cached layer once, with no
+pass after the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 import torch
 
 from . import raster_kernel as K
+from .compose_kernel import I16_SCALE
+
+TILE_H = K.TILE_H
+TILE_W = K.TILE_W
 
 # Z order of the classes within a layer: shapes, images, glyphs.
 Z_ORDER = (0, 2, 1)
@@ -46,13 +66,51 @@ _N_TABLES = (2, 3, 2)
 _TABLE_COLS = ((16, 4), (8, 4, 4), (8, 4))
 
 
+def quantize_i16(layer_f32: torch.Tensor) -> torch.Tensor:
+    """(h, w, 4) f32 premultiplied layer → (h, w, 4) i16 fixed point: the
+    reference's values (round half to even, clipped to ±32767), kept
+    interleaved as the compose kernel reads them."""
+    q = torch.clamp(torch.round(layer_f32 * I16_SCALE), -32767.0, 32767.0)
+    return q.to(torch.int16).contiguous()
+
+
+def rect_extent(tile_rect: tuple | None, tiles_y: int, tiles_x: int,
+                height: int, width: int) -> tuple:
+    """→ (ty0, tx0, ty1, tx1, out_h, out_w): the tile rect (the whole grid
+    for None) and the pixel extent of the output cut to it, which ends
+    where the frame does."""
+    ty0, tx0, ty1, tx1 = (0, 0, tiles_y, tiles_x) if tile_rect is None \
+        else (int(v) for v in tile_rect)
+    if not (0 <= ty0 < ty1 <= tiles_y and 0 <= tx0 < tx1 <= tiles_x):
+        raise ValueError(f"{_WHO}: tile rect {(ty0, tx0, ty1, tx1)} is not "
+                         f"inside the {tiles_y}x{tiles_x} grid")
+    out_h = min(ty1 * TILE_H, height) - ty0 * TILE_H
+    out_w = min(tx1 * TILE_W, width) - tx0 * TILE_W
+    if out_h <= 0 or out_w <= 0:
+        raise ValueError(f"{_WHO}: tile rect {(ty0, tx0, ty1, tx1)} lies "
+                         f"outside the {width}x{height} frame")
+    return ty0, tx0, ty1, tx1, out_h, out_w
+
+
+def _check_modes(background, layer_i16: bool) -> None:
+    if layer_i16 and background is not None:
+        raise ValueError(f"{_WHO}: layer_i16 is a layer mode; it takes "
+                         "background=None")
+
+
 def render_tiles_blocks_plain(layers_blocks, font_tex, image_atlas,
                               background: tuple | None, tiles_y: int,
-                              tiles_x: int, height: int, width: int
+                              tiles_x: int, height: int, width: int, *,
+                              layer_i16: bool = False,
+                              tile_rect: tuple | None = None
                               ) -> torch.Tensor:
     """The plain version of `render_tiles_blocks`: batched over tiles,
     looping k over each block's bin width with slots outside [lo, hi)
-    masked, on the per-command functions of `render_tiles_plain`."""
+    masked, on the per-command functions of `render_tiles_plain`; the whole
+    frame is rendered, then cut to `tile_rect` and quantized."""
+    _check_modes(background, layer_i16)
+    ty0, tx0, _, _, out_h, out_w = rect_extent(tile_rect, tiles_y, tiles_x,
+                                               height, width)
     grid = K._TileGrid(tiles_y, tiles_x, font_tex.device)
     if background is not None:
         grid.fill(background)
@@ -63,10 +121,13 @@ def render_tiles_blocks_plain(layers_blocks, font_tex, image_atlas,
             for tables, bins, lo, hi in cls_lists[ci]:
                 grid.scan(bins, K.class_step(ci, tables, ftex, atlas),
                           lo=lo, hi=hi)
-    img = grid.image(height, width)
+    img = grid.image(height, width)[ty0 * TILE_H:ty0 * TILE_H + out_h,
+                                    tx0 * TILE_W:tx0 * TILE_W + out_w]
+    if layer_i16:
+        return quantize_i16(img)
     if background is None:
         return img.contiguous()
-    return K.quantize_u8(img)
+    return K.quantize_u8(img).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -77,12 +138,25 @@ def render_tiles_blocks_plain(layers_blocks, font_tex, image_atlas,
 _BLOCK_DESC = np.dtype([("t0", "<u8"), ("t1", "<u8"), ("t2", "<u8"),
                         ("bins", "<u8"), ("lo", "<u8"), ("hi", "<u8"),
                         ("cls", "<i4"), ("k", "<i4")])
+_BLOCK_PACK = struct.Struct("<6Q2i")   # the same row, field by field
+
+# Block descriptors that ride in the launch's parameter block by value
+# (MAX_INLINE_BLOCKS in csrc/raster_blocks.cu: 64 x 56 B and the rest of the
+# block stay under the 4 KB a launch may carry); a longer list goes through
+# an array in device memory.
+MAX_INLINE_BLOCKS = 64
+# The unit of a tile a CTA owns: STRIP_W columns by 4 * ROWS_PER_THREAD
+# rows. 32 x 16 (16 CTAs a tile) measured fastest; csrc/raster_blocks.cu
+# lists the pairs it compiles.
+STRIP_W = 32
+ROWS_PER_THREAD = 4
+_OUT_U8, _OUT_F32, _OUT_I16 = 0, 1, 2
 
 
 class _BlocksParams(ctypes.Structure):
     """Mirror of `BlocksParams` in csrc/raster_blocks.cu."""
     _fields_ = [("blocks", ctypes.c_void_p), ("n_blocks", ctypes.c_int),
-                ("has_background", ctypes.c_int),
+                ("out_mode", ctypes.c_int),
                 ("font_tex", ctypes.c_void_p), ("font_h", ctypes.c_int),
                 ("font_w", ctypes.c_int),
                 ("image_atlas", ctypes.c_void_p), ("atlas_h", ctypes.c_int),
@@ -90,8 +164,12 @@ class _BlocksParams(ctypes.Structure):
                 ("bg_r", ctypes.c_float), ("bg_g", ctypes.c_float),
                 ("bg_b", ctypes.c_float),
                 ("tiles_x", ctypes.c_int), ("tiles_y", ctypes.c_int),
+                ("ty0", ctypes.c_int), ("tx0", ctypes.c_int),
+                ("rect_tx", ctypes.c_int),
                 ("height", ctypes.c_int), ("width", ctypes.c_int),
-                ("out", ctypes.c_void_p)]
+                ("out", ctypes.c_void_p),
+                ("inline_blocks",
+                 ctypes.c_ubyte * (MAX_INLINE_BLOCKS * _BLOCK_DESC.itemsize))]
 
 
 _LIB = K.new_library_state()
@@ -100,20 +178,20 @@ _WHO = "render_tiles_blocks"
 
 def _bind(lib) -> None:
     lib.raster_blocks_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int,
                                          ctypes.c_void_p]
     lib.raster_blocks_launch.restype = ctypes.c_int
     lib.raster_blocks_error_string.argtypes = [ctypes.c_int]
     lib.raster_blocks_error_string.restype = ctypes.c_char_p
-    for fn, want, what in (
-            (lib.raster_blocks_params_size, ctypes.sizeof(_BlocksParams),
-             "BlocksParams"),
-            (lib.raster_blocks_desc_size, _BLOCK_DESC.itemsize,
-             "BlockDesc")):
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
-        if fn() != want:
-            raise RuntimeError(f"{what} is {fn()} bytes in C, {want} in "
-                               "Python")
+    K.check_layout(lib, (
+        ("raster_blocks_params_size", ctypes.sizeof(_BlocksParams),
+         "sizeof(BlocksParams)"),
+        ("raster_blocks_desc_size", _BLOCK_DESC.itemsize,
+         "sizeof(BlockDesc)"),
+        ("raster_blocks_inline_offset", _BlocksParams.inline_blocks.offset,
+         "offsetof(BlocksParams, inline_blocks)"),
+        ("raster_blocks_max_inline", MAX_INLINE_BLOCKS,
+         "MAX_INLINE_BLOCKS")))
 
 
 def build() -> dict:
@@ -151,52 +229,54 @@ def _descriptors(layers_blocks, T: int, device) -> tuple[np.ndarray, list]:
                                      f"have {T} rows")
                 ptrs = [tb.data_ptr() for tb in tables] + [0] * (
                     3 - len(tables))
-                rows.append((*ptrs, bins.data_ptr(),
-                             0 if lo is None else lo.data_ptr(),
-                             hi.data_ptr(), ci, bins.shape[1]))
+                rows.append(_BLOCK_PACK.pack(
+                    *ptrs, bins.data_ptr(),
+                    0 if lo is None else lo.data_ptr(), hi.data_ptr(), ci,
+                    bins.shape[1]))
                 keep += [*tables, bins, *bounds]
-    return np.array(rows, dtype=_BLOCK_DESC), keep
+    return np.frombuffer(b"".join(rows), dtype=_BLOCK_DESC), keep
 
 
 def _launch(layers_blocks, font_tex, image_atlas, background, tiles_y,
-            tiles_x, height, width) -> torch.Tensor:
+            tiles_x, height, width, layer_i16, tile_rect) -> torch.Tensor:
     device = font_tex.device
-    T = tiles_y * tiles_x
     K.check_frame_fits(height, width, tiles_y, tiles_x, _WHO)
     K.check_atlases(font_tex, image_atlas, device, _WHO)
+    ty0, tx0, ty1, tx1, out_h, out_w = rect_extent(tile_rect, tiles_y,
+                                                   tiles_x, height, width)
     build()
     lib = _LIB["lib"]
-    desc, keep = _descriptors(layers_blocks, T, device)
+    desc, keep = _descriptors(layers_blocks, tiles_y * tiles_x, device)
     p = _BlocksParams()
-    # One small upload a frame; at least one row so the pointer is valid.
-    desc_dev = torch.from_numpy(
-        np.frombuffer(desc.tobytes() or bytes(_BLOCK_DESC.itemsize),
-                      np.uint8).copy()).to(device)
-    p.blocks = desc_dev.data_ptr()
+    desc_dev = K.place_descriptors(p, "blocks", "inline_blocks", desc,
+                                   MAX_INLINE_BLOCKS, device)
     p.n_blocks = len(desc)
-    p.has_background = int(background is not None)
     p.font_tex = font_tex.data_ptr()
     p.font_h, p.font_w = font_tex.shape
     p.image_atlas = image_atlas.data_ptr()
     p.atlas_h, p.atlas_w = image_atlas.shape[:2]
     if background is not None:
+        p.out_mode, dtype = _OUT_U8, torch.uint8
         p.bg_r, p.bg_g, p.bg_b = (float(c) for c in background[:3])
+    elif layer_i16:
+        p.out_mode, dtype = _OUT_I16, torch.int16
+    else:
+        p.out_mode, dtype = _OUT_F32, torch.float32
     p.tiles_x, p.tiles_y = tiles_x, tiles_y
-    p.height, p.width = height, width
-    out = torch.empty((height, width, 4), device=device,
-                      dtype=torch.float32 if background is None
-                      else torch.uint8)
+    p.ty0, p.tx0, p.rect_tx = ty0, tx0, tx1 - tx0
+    p.height, p.width = out_h, out_w
+    out = torch.empty((out_h, out_w, 4), device=device, dtype=dtype)
     p.out = out.data_ptr()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.raster_blocks_launch(ctypes.byref(p), T, stream)
+    rc = K.launch_on(device, lambda stream: lib.raster_blocks_launch(
+        ctypes.byref(p), (ty1 - ty0) * (tx1 - tx0), STRIP_W, ROWS_PER_THREAD,
+        stream))
     if rc != 0:
         raise RuntimeError("raster_blocks kernel launch failed: "
                            + lib.raster_blocks_error_string(rc).decode())
     render_tiles_blocks.launches += 1
-    # The tables, bins, bounds and descriptors were alive up to here; the
-    # allocator hands their memory out again only to later work on this
-    # stream, which runs after the kernel.
+    # The tables, bins, bounds and a device array of descriptors were alive
+    # up to here; the allocator hands their memory out again only to later
+    # work on this stream, which runs after the kernel.
     del keep, desc_dev
     return out
 
@@ -205,15 +285,17 @@ def render_tiles_blocks(layers_blocks, font_tex: torch.Tensor,
                         image_atlas: torch.Tensor,
                         background: tuple | None, tiles_y: int, tiles_x: int,
                         height: int, width: int, n_tiles: int | None = None,
-                        tile0=None) -> torch.Tensor:
+                        tile0=None, *, layer_i16: bool = False,
+                        tile_rect: tuple | None = None) -> torch.Tensor:
     """Rasterize block lists (see the module docstring) on `font_tex`'s
     device → the (height, width, 4) u8 frame, or with `background=None`
-    the (height, width, 4) f32 premultiplied layer. font_tex (FH, FW) u8
-    SDF atlas; image_atlas (AH, AW, 4) u8. On the CPU this is
-    `render_tiles_blocks_plain`; on a CUDA device it launches the kernel
-    (and counts the launch in `render_tiles_blocks.launches`) or raises.
-    `n_tiles` / `tile0` (a contiguous slice of tiles for a device mesh)
-    are not ported."""
+    the (height, width, 4) premultiplied layer, f32 or with `layer_i16`
+    i16 at 1/32767; with `tile_rect` = (ty0, tx0, ty1, tx1) only those
+    tiles, cut out. font_tex (FH, FW) u8 SDF atlas; image_atlas (AH, AW, 4)
+    u8. On the CPU this is `render_tiles_blocks_plain`; on a CUDA device it
+    launches the kernel (and counts the launch in
+    `render_tiles_blocks.launches`) or raises. `n_tiles` / `tile0` (a
+    contiguous slice of tiles for a device mesh) are not ported."""
     if n_tiles is not None or tile0 is not None:
         raise NotImplementedError(
             f"{_WHO}: n_tiles / tile0 (a mesh slice of tiles) are not "
@@ -221,11 +303,14 @@ def render_tiles_blocks(layers_blocks, font_tex: torch.Tensor,
     if font_tex.device.type == "cpu":
         return render_tiles_blocks_plain(layers_blocks, font_tex,
                                          image_atlas, background, tiles_y,
-                                         tiles_x, height, width)
+                                         tiles_x, height, width,
+                                         layer_i16=layer_i16,
+                                         tile_rect=tile_rect)
     if font_tex.device.type != "cuda":
         raise ValueError(f"{_WHO}: unsupported device {font_tex.device}")
+    _check_modes(background, layer_i16)
     return _launch(layers_blocks, font_tex, image_atlas, background,
-                   tiles_y, tiles_x, height, width)
+                   tiles_y, tiles_x, height, width, layer_i16, tile_rect)
 
 
 render_tiles_blocks.launches = 0

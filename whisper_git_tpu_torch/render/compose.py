@@ -22,12 +22,14 @@ frames, the *rendered pixels* of almost everything are unchanged too.
     transparent sub-grid of tile columns.
   * The frame is assembled by `compose_kernel.compose_tiles` (K3), which
     blends the layers in the plan's z order. Per frame the host uploads
-    one small i16 blob (slab starts, quantized tails and their bins) and
-    the kernel's op descriptors.
+    one small i16 blob (slab starts, quantized tails and their bins); the
+    kernel's op descriptors ride in its launch, those of the cached layers
+    built once a plan.
 
 Cached layers are rendered by `blocks_kernel.render_tiles_blocks` (K2) over
-a transparent canvas and stored as interleaved (h, w, 4) i16 fixed point
-at 1/32767, the reference's values in the port's layout. The reference's
+a transparent canvas and written by it as interleaved (h, w, 4) i16 fixed
+point at 1/32767, the reference's values in the port's layout; a chrome
+group only over the tile rect of its ink. The reference's
 other blend modes (f16 layers blended by an XLA chain, what it runs where
 it has no Pallas) have no counterpart: on the CPU K3's plain version
 blends the same i16 layers. The device-mesh branch is not ported.
@@ -53,8 +55,9 @@ import torch
 
 from . import frame as F
 from . import rasterizer as R
+from .blocks_kernel import quantize_i16 as _quant_i16_planar  # noqa: F401
 from .blocks_kernel import render_tiles_blocks
-from .compose_kernel import I16_SCALE, compose_tiles
+from .compose_kernel import PlanRows, compose_tiles
 
 TILE_H = R.TILE_H
 TILE_W = R.TILE_W
@@ -93,12 +96,9 @@ def compose_enabled() -> bool:
     return True
 
 
-def _quant_i16_planar(layer_f32: torch.Tensor) -> torch.Tensor:
-    """(h, w, 4) f32 premultiplied layer → (h, w, 4) i16 fixed point: the
-    reference's values (round half to even, clipped to ±32767), kept
-    interleaved as the compose kernel reads them."""
-    q = torch.clamp(torch.round(layer_f32 * I16_SCALE), -32767.0, 32767.0)
-    return q.to(torch.int16).contiguous()
+# `_quant_i16_planar` (the reference's name) is the plain blocks
+# rasterizer's quantizer, `blocks_kernel.quantize_i16`: on the card the
+# blocks kernel writes the same i16 values itself.
 
 
 def _single_class_blocks(ci: int, block):
@@ -209,15 +209,15 @@ def _chrome_group_image(members, chrome_entries, font_tex, image_atlas,
                  ch["segs"][ci][si + 1])
         layers.append(_single_class_blocks(ci, block)[0])
     oy, ox, y1, x1 = _group_bbox(members, chrome_entries, height, width)
-    layer = render_tiles_blocks(tuple(layers), font_tex, image_atlas, None,
-                                tiles_y, tiles_x, height, width)
     ty0, tx0 = oy // TILE_H, ox // TILE_W
     ty1 = -(-y1 // TILE_H)
     tx1 = -(-x1 // TILE_W)
-    # Quantizing copies the crop, once per content change; every later
-    # frame then reads only the ink's tiles.
-    layer = _quant_i16_planar(layer[ty0 * TILE_H:ty1 * TILE_H,
-                                    tx0 * TILE_W:tx1 * TILE_W])
+    # Only the ink's tiles are rasterized, once per content change, and
+    # written as i16; every later frame then reads only those tiles.
+    layer = render_tiles_blocks(tuple(layers), font_tex, image_atlas, None,
+                                tiles_y, tiles_x, height, width,
+                                layer_i16=True,
+                                tile_rect=(ty0, tx0, ty1, tx1))
     entry = (layer, ty0, tx0)
     while len(_GROUP_CACHE) > _img_cache_cap(12, font_tex.device):
         _GROUP_CACHE.pop(next(iter(_GROUP_CACHE)))
@@ -281,9 +281,9 @@ def _window_slab(w, gi, ci, art, caps, font_tex, image_atlas, tiles_x,
     tables = tuple(shifted[j] for j in _CLS_TBL[ci])
     block = (tables, torch.from_numpy(bins).to(device), None,
              torch.from_numpy(counts).to(device))
-    img = _quant_i16_planar(render_tiles_blocks(
+    img = render_tiles_blocks(
         _single_class_blocks(ci, block), font_tex, image_atlas, None,
-        tiles_y_slab, tiles_x, slab_h, width))
+        tiles_y_slab, tiles_x, slab_h, width, layer_i16=True)
     while len(_SLAB_CACHE) > _img_cache_cap(24, device):
         _SLAB_CACHE.pop(next(iter(_SLAB_CACHE)))
     _SLAB_CACHE[key] = {"img": img, "y0s": y0s}
@@ -402,18 +402,21 @@ def frame_tails(blob: torch.Tensor, font_tex, image_atlas, height: int,
 
 def _compose_frame(blob, images, slabs, font_tex, image_atlas,
                    background: tuple, height: int, width: int,
-                   tiles_y: int, tiles_x: int, meta: tuple) -> torch.Tensor:
+                   tiles_y: int, tiles_x: int, meta: tuple,
+                   rows: PlanRows | None = None) -> torch.Tensor:
     """meta = (ops, dyn_meta, n_slabs); ops entries:
     ("img", i, ty0, tx0): composite images[i] at that tile offset;
     ("slab", j, clip): show slabs[j] from the blob's start j, masked to
     the clip's rows;
     ("dyn", li, ci): that volatile tail, from the blob.
+    `rows`: the plan's descriptor rows of its "img" and "slab" ops.
     → the (height, width, 4) u8 frame on the blob's device."""
     starts, dyns, kops = frame_tails(blob, font_tex, image_atlas, height,
                                      width, tiles_y, tiles_x, meta)
     return compose_tiles(starts, tuple(images), tuple(slabs), dyns,
                          ops=kops, tiles_y=tiles_y, tiles_x=tiles_x,
-                         background=background, height=height, width=width)
+                         background=background, height=height, width=width,
+                         rows=rows)
 
 
 # Plan memo: everything about a frame that is NOT the scroll offset. A
@@ -485,12 +488,18 @@ def _build_plan(scene, windows, chrome_entries, win_art, win_caps,
             slab_src.append((gi, y0s))
         else:
             op_meta.append(op)  # ("dyn", li, ci): from the blob, per frame
+    ops = tuple(op_meta)
+    img_stack = _memo_stack("img", tuple(img_keys), images, device)
+    slab_stack = _memo_stack("slab", tuple(slab_keys), slabs, device)
     return {
-        "ops": tuple(op_meta),
-        "img_stack": _memo_stack("img", tuple(img_keys), images, device),
-        "slab_stack": _memo_stack("slab", tuple(slab_keys), slabs, device),
+        "ops": ops,
+        "img_stack": img_stack,
+        "slab_stack": slab_stack,
         "slab_src": tuple(slab_src),
         "slab_h": _slab_height(height),
+        # The compose kernel's descriptors of the cached layers, checked
+        # here and kept while the plan lives; a frame fills only its tails'.
+        "rows": PlanRows(img_stack, slab_stack, ops, device),
     }
 
 
@@ -593,7 +602,7 @@ def prepare_compose_dispatch(scene, font_tex, image_atlas):
             image_atlas)
     statics = dict(background=tuple(float(c) for c in scene.background[:3]),
                    height=height, width=width, tiles_y=tiles_y,
-                   tiles_x=tiles_x, meta=meta)
+                   tiles_x=tiles_x, meta=meta, rows=plan["rows"])
     return args, statics
 
 

@@ -29,11 +29,25 @@ one quantize clip(x·255 + 0.5), alpha 255. The layouts are the port's own:
 `compose_tiles_plain`; CUDA tensors launch the kernel in
 `csrc/compose_tiles.cu` (built with nvcc on first use, loaded with ctypes)
 or raise. `compose_tiles.launches` counts kernel launches.
+
+What bounds the kernel on the card is bytes: 8 B a pixel of every covered
+layer and slab crop read, 4 B a pixel written. It is short, so it waits for
+its slowest CTA, for each op's loads in turn and, before this design, for
+its own descriptors' upload. The design: a thread owns two neighbouring
+pixels (one 16-byte load a layer), a CTA a strip of 2 x `ROWS_PER_THREAD`
+rows of a tile (eight CTAs a tile), so the tiles under every layer spread
+over more SMs; the op list is walked one op ahead, the next layer's loads
+in flight while this one is blended; up to `MAX_INLINE_OPS` op descriptors
+ride in the launch's parameter block by value (no allocation, no upload,
+no wait), a longer list goes through a device array; and the `img` and
+`slab` rows, fixed while a plan lives, are built and checked once a plan
+(`PlanRows`), so a frame packs only its tails' rows.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 import torch
@@ -143,6 +157,17 @@ _OP_DESC = np.dtype([("src", "<u8"), ("clips", "<u8"), ("bins", "<u8"),
                      ("w", "<i4"), ("ty0", "<i4"), ("tx0", "<i4"),
                      ("ts", "<i4"), ("k", "<i4"), ("slab", "<i4"),
                      ("cy0", "<f4"), ("cy1", "<f4")])
+# The same row packed field by field, in `_OP_DESC.names` order: a frame
+# joins its rows' bytes, which costs less than building a numpy array.
+_OP_PACK = struct.Struct("<4Q8i2f")
+
+# Op descriptors that ride in the launch's parameter block by value
+# (MAX_INLINE_OPS in csrc/compose_tiles.cu: 48 x 72 B and the rest of the
+# block stay under the 4 KB a launch may carry); a longer list goes through
+# an array in device memory.
+MAX_INLINE_OPS = 48
+# Rows of a tile a thread owns (2, 4 or 8); a CTA owns twice as many.
+ROWS_PER_THREAD = 4
 
 
 class _ComposeParams(ctypes.Structure):
@@ -153,7 +178,9 @@ class _ComposeParams(ctypes.Structure):
                 ("bg_b", ctypes.c_float),
                 ("tiles_x", ctypes.c_int), ("tiles_y", ctypes.c_int),
                 ("height", ctypes.c_int), ("width", ctypes.c_int),
-                ("out", ctypes.c_void_p)]
+                ("out", ctypes.c_void_p),
+                ("inline_ops",
+                 ctypes.c_ubyte * (MAX_INLINE_OPS * _OP_DESC.itemsize))]
 
 
 _LIB = K.new_library_state()
@@ -162,19 +189,17 @@ _WHO = "compose_tiles"
 
 def _bind(lib) -> None:
     lib.compose_tiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                         ctypes.c_void_p]
+                                         ctypes.c_int, ctypes.c_void_p]
     lib.compose_tiles_launch.restype = ctypes.c_int
     lib.compose_tiles_error_string.argtypes = [ctypes.c_int]
     lib.compose_tiles_error_string.restype = ctypes.c_char_p
-    for fn, want, what in (
-            (lib.compose_tiles_params_size, ctypes.sizeof(_ComposeParams),
-             "ComposeParams"),
-            (lib.compose_tiles_desc_size, _OP_DESC.itemsize, "ComposeOp")):
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
-        if fn() != want:
-            raise RuntimeError(f"{what} is {fn()} bytes in C, {want} in "
-                               "Python")
+    K.check_layout(lib, (
+        ("compose_tiles_params_size", ctypes.sizeof(_ComposeParams),
+         "sizeof(ComposeParams)"),
+        ("compose_tiles_desc_size", _OP_DESC.itemsize, "sizeof(ComposeOp)"),
+        ("compose_tiles_inline_offset", _ComposeParams.inline_ops.offset,
+         "offsetof(ComposeParams, inline_ops)"),
+        ("compose_tiles_max_inline", MAX_INLINE_OPS, "MAX_INLINE_OPS")))
 
 
 def build() -> dict:
@@ -189,36 +214,83 @@ def _check_layer(t, label: str, dtype, device):
                          "non-empty (h, w, 4)")
 
 
+def _row(label: str, kind: str, src: int, clips: int = 0, bins: int = 0,
+         counts: int = 0, h: int = 0, w: int = 0, ty0: int = 0, tx0: int = 0,
+         ts: int = 0, k: int = 0, slab: int = 0, cy0: float = 0.0,
+         cy1: float = 0.0) -> bytes:
+    """One descriptor's bytes (the fields of `_OP_DESC`, in its order), its
+    source checked for the alignment the kernel's loads of that kind
+    need."""
+    if src % _SRC_ALIGN[kind]:
+        raise ValueError(f"{_WHO}: {label} is not aligned to "
+                         f"{_SRC_ALIGN[kind]} bytes")
+    return _OP_PACK.pack(src, clips, bins, counts, _KINDS[kind], h, w, ty0,
+                         tx0, ts, k, slab, cy0, cy1)
+
+
+def _static_row(op: tuple, label: str, images, slabs, device) -> bytes:
+    """The descriptor of an "img" or "slab" op, with the checks that guard
+    the kernel's reads of its layer. It depends on the plan alone."""
+    _static_row.built += 1
+    if op[0] == "img":
+        _, i, ty0, tx0 = op
+        layer = images[i]
+        _check_layer(layer, label, torch.int16, device)
+        if ty0 < 0 or tx0 < 0:
+            raise ValueError(f"{_WHO}: {label} has a negative tile offset")
+        return _row(label, "img", src=layer.data_ptr(), h=layer.shape[0],
+                    w=layer.shape[1], ty0=ty0, tx0=tx0)
+    _, j, clip = op
+    slab = slabs[j]
+    _check_layer(slab, label, torch.int16, device)
+    return _row(label, "slab", src=slab.data_ptr(), h=slab.shape[0],
+                w=slab.shape[1], slab=j, cy0=float(clip[1]),
+                cy1=float(clip[3]))
+
+
+_static_row.built = 0
+
+
+class PlanRows:
+    """The "img" and "slab" rows of a plan's ops, built and checked once,
+    when the plan is: they are fixed while the plan lives. Holds the layers
+    they point at, so those live as long as the rows do. A frame hands it
+    to `compose_tiles`, which then fills only the tails' rows."""
+
+    def __init__(self, images: tuple, slabs: tuple, ops: tuple, device):
+        self.images, self.slabs = images, slabs
+        self.device = torch.device(device)
+        self.rows = {op: _static_row(op, f"op {oi} {op[0]}", images, slabs,
+                                     self.device)
+                     for oi, op in enumerate(ops)
+                     if op[0] in ("img", "slab")}
+
+    def serves(self, images, slabs, device) -> bool:
+        return (images is self.images and slabs is self.slabs
+                and device == self.device)
+
+
 def op_descriptors(images, slabs, dyns, ops: tuple, tiles_y: int,
-                   device) -> tuple[np.ndarray, list]:
+                   device, rows: PlanRows | None = None
+                   ) -> tuple[np.ndarray, list]:
     """The flat z-ordered descriptor array of `ops`, and every tensor it
-    points at (to be kept alive until the launch is enqueued)."""
-    rows, keep = [], []
-    zero = dict.fromkeys(_OP_DESC.names, 0)
+    points at (to be kept alive until the launch is enqueued). "img" and
+    "slab" rows come from `rows` where it was built for these very layers;
+    else they are built and checked here."""
+    out, keep = [], []
+    kept = rows.rows if rows is not None and rows.serves(
+        images, slabs, device) else {}
     for oi, op in enumerate(ops):
         kind = op[0]
         label = f"op {oi} {kind}"
         if kind not in _KINDS:
             raise ValueError(f"{_WHO}: {label}: unknown kind")
-        row = dict(zero, kind=_KINDS[kind])
-        if kind == "img":
-            _, i, ty0, tx0 = op
-            layer = images[i]
-            _check_layer(layer, label, torch.int16, device)
-            if ty0 < 0 or tx0 < 0:
-                raise ValueError(f"{_WHO}: {label} has a negative tile "
-                                 "offset")
-            row.update(src=layer.data_ptr(), h=layer.shape[0],
-                       w=layer.shape[1], ty0=ty0, tx0=tx0)
-            keep.append(layer)
-        elif kind == "slab":
-            _, j, clip = op
-            slab = slabs[j]
-            _check_layer(slab, label, torch.int16, device)
-            row.update(src=slab.data_ptr(), h=slab.shape[0],
-                       w=slab.shape[1], slab=j, cy0=float(clip[1]),
-                       cy1=float(clip[3]))
-            keep.append(slab)
+        if kind in ("img", "slab"):
+            row = kept.get(op)
+            if row is None:
+                row = _static_row(op, label, images, slabs, device)
+            out.append(row)
+            keep.append((images if kind == "img" else slabs)[op[1]])
         elif kind == "dyni":
             entry = dyns.get((op[1], op[2]))
             if entry is None:
@@ -243,29 +315,25 @@ def op_descriptors(images, slabs, dyns, ops: tuple, tiles_y: int,
                     f"{tuple(sclips.shape)}, bins {tuple(bins.shape)}, "
                     f"counts {tuple(counts.shape)} for a {tiles_y}x{ts} "
                     f"sub-grid at column {c0}")
-            row.update(src=shapes.data_ptr(), clips=sclips.data_ptr(),
-                       bins=bins.data_ptr(), counts=counts.data_ptr(),
-                       tx0=c0, ts=ts, k=bins.shape[1])
+            out.append(_row(label, kind, src=shapes.data_ptr(),
+                            clips=sclips.data_ptr(), bins=bins.data_ptr(),
+                            counts=counts.data_ptr(), tx0=c0, ts=ts,
+                            k=bins.shape[1]))
             keep += [shapes, sclips, bins, counts]
         else:
             layer = dyns.get((op[1], op[2]))
             if layer is None:
                 continue
             _check_layer(layer, label, torch.float32, device)
-            c0 = op[3]
-            row.update(src=layer.data_ptr(), h=layer.shape[0],
-                       w=layer.shape[1], tx0=c0,
-                       ts=-(-layer.shape[1] // TILE_W))
+            out.append(_row(label, kind, src=layer.data_ptr(),
+                            h=layer.shape[0], w=layer.shape[1], tx0=op[3],
+                            ts=-(-layer.shape[1] // TILE_W)))
             keep.append(layer)
-        if row["src"] % _SRC_ALIGN[kind]:
-            raise ValueError(f"{_WHO}: {label} is not aligned to "
-                             f"{_SRC_ALIGN[kind]} bytes")
-        rows.append(tuple(row[name] for name in _OP_DESC.names))
-    return np.array(rows, dtype=_OP_DESC), keep
+    return np.frombuffer(b"".join(out), dtype=_OP_DESC), keep
 
 
 def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
-            height, width) -> torch.Tensor:
+            height, width, rows) -> torch.Tensor:
     device = starts.device
     K.check_frame_fits(height, width, tiles_y, tiles_x, _WHO)
     K.check_tensor(starts, "starts", torch.int32, device, 1, _WHO)
@@ -275,13 +343,11 @@ def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
                          f"({starts.shape[0]})")
     build()
     lib = _LIB["lib"]
-    desc, keep = op_descriptors(images, slabs, dyns, ops, tiles_y, device)
-    # One small upload a frame; at least one row so the pointer is valid.
-    desc_dev = torch.from_numpy(
-        np.frombuffer(desc.tobytes() or bytes(_OP_DESC.itemsize),
-                      np.uint8).copy()).to(device)
+    desc, keep = op_descriptors(images, slabs, dyns, ops, tiles_y, device,
+                                rows)
     p = _ComposeParams()
-    p.ops = desc_dev.data_ptr()
+    desc_dev = K.place_descriptors(p, "ops", "inline_ops", desc,
+                                   MAX_INLINE_OPS, device)
     p.n_ops = len(desc)
     p.n_starts = starts.shape[0]
     p.starts = starts.data_ptr()
@@ -290,17 +356,15 @@ def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
     p.height, p.width = height, width
     out = torch.empty((height, width, 4), device=device, dtype=torch.uint8)
     p.out = out.data_ptr()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.compose_tiles_launch(ctypes.byref(p), tiles_y * tiles_x,
-                                      stream)
+    rc = K.launch_on(device, lambda stream: lib.compose_tiles_launch(
+        ctypes.byref(p), tiles_y * tiles_x, ROWS_PER_THREAD, stream))
     if rc != 0:
         raise RuntimeError("compose_tiles kernel launch failed: "
                            + lib.compose_tiles_error_string(rc).decode())
     compose_tiles.launches += 1
-    # The layers, tails, starts and descriptors were alive up to here; the
-    # allocator hands their memory out again only to later work on this
-    # stream, which runs after the kernel.
+    # The layers, tails, starts and a device array of descriptors were
+    # alive up to here; the allocator hands their memory out again only to
+    # later work on this stream, which runs after the kernel.
     del keep, desc_dev
     return out
 
@@ -308,12 +372,15 @@ def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
 def compose_tiles(starts: torch.Tensor, images: tuple, slabs: tuple,
                   dyns: dict, *, ops: tuple, tiles_y: int, tiles_x: int,
                   background: tuple, height: int, width: int,
-                  n_rows: int | None = None, row0=None) -> torch.Tensor:
+                  n_rows: int | None = None, row0=None,
+                  rows: PlanRows | None = None) -> torch.Tensor:
     """Blend the plan's layers (see the module docstring) on `starts`'
     device → the (height, width, 4) u8 frame. On the CPU this is
     `compose_tiles_plain`; on a CUDA device it launches the kernel (and
-    counts the launch in `compose_tiles.launches`) or raises. `n_rows` /
-    `row0` (a slice of tile rows for a device mesh) are not ported."""
+    counts the launch in `compose_tiles.launches`) or raises. `rows`: the
+    plan's `PlanRows`, which spare a frame the "img" and "slab" rows.
+    `n_rows` / `row0` (a slice of tile rows for a device mesh) are not
+    ported."""
     if n_rows is not None or row0 is not None:
         raise NotImplementedError(
             f"{_WHO}: n_rows / row0 (a mesh slice of tile rows) are not "
@@ -326,7 +393,7 @@ def compose_tiles(starts: torch.Tensor, images: tuple, slabs: tuple,
     if starts.device.type != "cuda":
         raise ValueError(f"{_WHO}: unsupported device {starts.device}")
     return _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x,
-                   background, height, width)
+                   background, height, width, rows)
 
 
 compose_tiles.launches = 0

@@ -31,6 +31,7 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 from .scene import MAX_LAYERS  # the parameter block holds every layer
@@ -221,6 +222,76 @@ def class_step(ci: int, tables, ftex, atlas):
         f, px1, py1, images[i], image_clips[i], atlas, px, py)
 
 
+# One pixel more around every extent, against rounding (EXTENT_PAD in
+# csrc/raster_steps.cuh).
+EXTENT_PAD = 1.0
+
+
+def command_extents(ci: int, tables) -> torch.Tensor:
+    """The extent of every command of class `ci` (0 shapes, 1 glyphs, 2
+    images) → (N, 4) f32 (x0, y0, x1, y1): the rectangle of pixel centres,
+    bounds inclusive, outside which the command's coverage is exactly 0, so
+    that compositing it there changes no bit. The mirror of
+    `command_extent` in csrc/raster_steps.cuh, which the kernels skip by.
+
+    A shape: its box grown by 0.5 px (a capsule's segment box by half
+    width + 0.5 px), beyond which `clamp(0.5 - d)` is 0. A glyph or image
+    quad: grown by one texel (w / uw px), beyond which both taps of an axis
+    weigh 0; for a glyph only when `8 * (w / uw) / 0.7 >= 0.5`, since the
+    distance outside the quad is 8 * w / uw and a smaller one still covers.
+    Every class: grown by EXTENT_PAD, then cut by the clip rect."""
+    t0, clip = tables[0], tables[-1]
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=t0.device)
+    if ci == 0:
+        seg = t0[:, 0] == 1.0
+        g = torch.where(seg, torch.clamp(t0[:, 5], min=0.0), 0.0) \
+            + (0.5 + EXTENT_PAD)
+        far_x = torch.where(seg, t0[:, 3], t0[:, 1] + t0[:, 3])
+        far_y = torch.where(seg, t0[:, 4], t0[:, 2] + t0[:, 4])
+        x0 = torch.minimum(t0[:, 1], far_x) - g
+        x1 = torch.maximum(t0[:, 1], far_x) + g
+        y0 = torch.minimum(t0[:, 2], far_y) - g
+        y1 = torch.maximum(t0[:, 2], far_y) + g
+    else:
+        w = torch.clamp(t0[:, 2], min=1e-6)
+        h = torch.clamp(t0[:, 3], min=1e-6)
+        gx = torch.where(t0[:, 6] > 0.0, w / t0[:, 6] + EXTENT_PAD, inf)
+        gy = torch.where(t0[:, 7] > 0.0, h / t0[:, 7] + EXTENT_PAD, inf)
+        if ci == 1:
+            d = SDF_SPREAD * (t0[:, 2] / torch.clamp(t0[:, 6], min=1e-6))
+            bounded = d / 0.7 >= 0.5
+            gx = torch.where(bounded, gx, inf)
+            gy = torch.where(bounded, gy, inf)
+        x0, x1 = t0[:, 0] - gx, (t0[:, 0] + w) + gx
+        y0, y1 = t0[:, 1] - gy, (t0[:, 1] + h) + gy
+    return torch.stack([torch.maximum(x0, clip[:, 0]),
+                        torch.maximum(y0, clip[:, 1]),
+                        torch.minimum(x1, clip[:, 2]),
+                        torch.minimum(y1, clip[:, 3])], dim=1)
+
+
+def extent_tile_pixels(ext: torch.Tensor, tile: torch.Tensor, tiles_x: int,
+                       height: int | None = None, width: int | None = None
+                       ) -> torch.Tensor:
+    """How many pixel centres of tile `tile[m]` lie inside extent `ext[m]`
+    → (M,) i64: the pixels a bin entry has to be computed on. With
+    `height` and `width`, only pixels of the frame count (its last tile row
+    and column may be ragged)."""
+    def span(lo, hi, org, size, limit):
+        last = org + size - 1
+        if limit is not None:
+            last = torch.clamp(last, max=limit - 1)
+        a = torch.clamp(torch.ceil(lo.double() - 0.5), min=org.double())
+        b = torch.clamp(torch.floor(hi.double() - 0.5), max=last.double())
+        return torch.clamp(b - a + 1.0, min=0.0)
+
+    tile = tile.long()
+    nx = span(ext[:, 0], ext[:, 2], (tile % tiles_x) * TILE_W, TILE_W, width)
+    ny = span(ext[:, 1], ext[:, 3], (tile // tiles_x) * TILE_H, TILE_H,
+              height)
+    return (nx * ny).long()
+
+
 def render_tiles_plain(layer_data, font_tex, image_atlas, background: tuple,
                        tiles_y: int, tiles_x: int, layer_sig: tuple,
                        height: int, width: int) -> torch.Tensor:
@@ -358,6 +429,59 @@ def _bind(lib) -> None:
             f"{ctypes.sizeof(_RasterParams)} in ctypes")
 
 
+def check_layout(lib, checks) -> None:
+    """Hold a library's view of its parameter structs against the Python
+    mirrors: `checks` lists (C function returning an int, the value the
+    mirror has, what it is). Raises on the first that differs."""
+    for fn_name, want, what in checks:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"{what} is {fn()} in C, {want} in Python")
+
+
+def place_descriptors(p, ptr_field: str, inline_field: str, desc, cap: int,
+                      device):
+    """Hand a launch its descriptor array `desc` (a numpy structured
+    array): up to `cap` rows are copied into the parameter block's
+    `inline_field` and ride in the launch by value (no allocation, no
+    upload, no wait); a longer list is uploaded and `ptr_field` set to the
+    device array. → that array, to keep alive until the launch is enqueued,
+    or None."""
+    if len(desc) <= cap:
+        if len(desc):
+            ctypes.memmove(
+                ctypes.addressof(p) + getattr(type(p), inline_field).offset,
+                desc.ctypes.data, desc.nbytes)
+        return None
+    desc_dev = torch.from_numpy(desc.view(np.uint8).copy()).to(device)
+    setattr(p, ptr_field, desc_dev.data_ptr())
+    return desc_dev
+
+
+def launch_on(device, launch):
+    """Call `launch(stream)` with `device` the calling thread's current
+    CUDA device and `stream` PyTorch's current stream there, as the integer
+    a C function takes → what `launch` returns. The device is switched, and
+    back, only where it is not the current one already."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return launch(_current_stream(index))
+    with torch.cuda.device(index):
+        return launch(_current_stream(index))
+
+
+def _current_stream(index: int) -> int:
+    # The stream's handle without a Stream object around it, where this
+    # PyTorch has the call: a launch's host time counts on a short kernel.
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def build() -> dict:
     """Build and load K1's library (see `build_library`)."""
     return build_library(_LIB, "raster_tiles.cu", _bind)
@@ -428,9 +552,8 @@ def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
     p.height, p.width = height, width
     out = torch.empty((height, width, 4), dtype=torch.uint8, device=device)
     p.out = out.data_ptr()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.raster_tiles_launch(ctypes.byref(p), T, stream)
+    rc = launch_on(device, lambda stream: lib.raster_tiles_launch(
+        ctypes.byref(p), T, stream))
     if rc != 0:
         raise RuntimeError("raster_tiles kernel launch failed: "
                            + lib.raster_tiles_error_string(rc).decode())
