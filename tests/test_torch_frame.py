@@ -266,7 +266,7 @@ def test_render_scene_device_dispatch(history, monkeypatch):
     """Three levels: compose by default, the frame cache with
     WGIT_FRAME_COMPOSE=0 or when compose declines (a fractional scroll
     offset), the packed path with WGIT_FRAME_CACHE=0; oversized scenes
-    raise before any of them."""
+    take the f32 path before any of them."""
     from whisper_git_tpu_torch.render import compose as PC
 
     _, _, _, port, _ = history
@@ -311,9 +311,10 @@ def test_render_scene_device_dispatch(history, monkeypatch):
     assert torch.equal(got, want)
     big = dataclasses.replace(scene, width=P.MAX_PACKED_PX + 1)
     del calls[:]
-    with pytest.raises(NotImplementedError):
-        P.render_scene_device(big, font, atlas)
+    img = P.render_scene_device(big, font, atlas)
     assert calls == []
+    assert img.shape == (big.height, big.width, 4)
+    assert torch.equal(img, P._render_scene_f32_device(big, font, atlas))
 
 
 def test_render_frame_device_defaults_to_the_scenes_image_atlas():

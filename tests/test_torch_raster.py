@@ -350,3 +350,136 @@ def test_extent_tile_pixels_stops_at_the_frames_ragged_edge():
     assert K.extent_tile_pixels(ext, tile, 2, height=100, width=200
                                 ).tolist() == [64 * 128, 64 * 72, 36 * 128,
                                                36 * 72]
+
+
+# ---- the parameter block ----------------------------------------------------
+
+def _layer_tensors(rng, T: int, n: int = 5):
+    """One layer's ten tensors on the CPU: seven f32 tables, three bins."""
+    return tuple(torch.from_numpy(rng.uniform(0, 1, (n, c)).astype(np.float32))
+                 for c in (16, 4, 8, 4, 4, 8, 4)) + tuple(
+        torch.from_numpy(rng.integers(-1, n, (T, k)).astype(np.int32))
+        for k in (8, 16, 32))
+
+
+def _c_struct(name: str, structs: dict) -> tuple[list, int]:
+    """The fields of C struct `name` in csrc/raster_tiles.cu as nvcc lays
+    them out for a 64-bit target → ([(field, offset, kind)], size): a
+    pointer is 8 bytes ("P"), an int or a float 4 ("i", "f"), each at a
+    multiple of its size; an array of a struct in `structs` (name → its
+    fields and size) inline, element by element as "field[i].member"."""
+    import os
+    import re
+
+    with open(os.path.join(K.CSRC_DIR, "raster_tiles.cu")) as f:
+        src = f.read()
+    assert int(re.search(r"constexpr int MAX_LAYERS = (\d+);",
+                         src).group(1)) == K.MAX_LAYERS
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+    fields, off = [], 0
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        m = re.match(r"(.*?[\s*])(\w+(?:\[\w+\])?(?:,\s*\w+)*)$",
+                     decl.strip())
+        if m is None:
+            continue
+        ctype = m.group(1).strip()
+        for field in re.split(r",\s*", m.group(2)):
+            array = re.match(r"(\w+)\[MAX_LAYERS\]$", field)
+            if array:
+                inner, size = structs[ctype]
+                off = -(-off // 8) * 8
+                for i in range(K.MAX_LAYERS):
+                    fields += [(f"{array.group(1)}[{i}].{f}", off + o, k)
+                               for f, o, k in inner]
+                    off += size
+                continue
+            kind, size = (("P", 8) if ctype.endswith("*")
+                          else ({"int": "i", "float": "f"}[ctype], 4))
+            off = -(-off // size) * size
+            fields.append((field, off, kind))
+            off += size
+    return fields, -(-off // 8) * 8
+
+
+def test_params_struct_layout_and_packing():
+    """The bytes `_pack_params` writes hold every field of `RasterParams`,
+    as csrc/raster_tiles.cu declares it, at its offset: two layers (one
+    drawing no images), empty rows up to MAX_LAYERS, the tail. The size the
+    wrapper checks at load is the struct's."""
+    import struct
+
+    layer = _c_struct("LayerTables", {})
+    fields, size = _c_struct("RasterParams", {"LayerTables": layer})
+    assert layer[1] == K._LAYER_PACK.size == 96
+    assert size == K.MAX_LAYERS * K._LAYER_PACK.size + K._TAIL_PACK.size \
+        == 456
+
+    rng = np.random.default_rng(0)
+    T, device = 6, torch.device("cpu")
+    layers = [_layer_tensors(rng, T), _layer_tensors(rng, T)]
+    sig = ((True, True, True), (True, True, False))
+    font = torch.zeros((64, 128), dtype=torch.uint8)
+    atlas = torch.zeros((64, 64, 4), dtype=torch.uint8)
+    out = torch.empty((100, 200, 4), dtype=torch.uint8)
+    bg = (0.25, 0.5, 0.75)
+    rows = [K._layer_row(li, s, layers[li], device, T)
+            for li, s in enumerate(sig)]
+    got = K._pack_params(rows, font, atlas, bg, 2, 3, 100, 200, out)
+    assert len(got) == size
+
+    want = {"font_tex": font.data_ptr(), "font_h": 64, "font_w": 128,
+            "image_atlas": atlas.data_ptr(), "atlas_h": 64, "atlas_w": 64,
+            "bg_r": 0.25, "bg_g": 0.5, "bg_b": 0.75, "n_layers": 2,
+            "tiles_x": 3, "tiles_y": 2, "height": 100, "width": 200,
+            "out": out.data_ptr()}
+    for li, s in enumerate(sig):
+        for name, t in zip(K._TABLES + K._BINS, layers[li]):
+            want[f"layers[{li}].{name}"] = t.data_ptr()
+        for ci, k in enumerate(("ks", "kg", "ki")):
+            want[f"layers[{li}].{k}"] = (layers[li][7 + ci].shape[1]
+                                         if s[ci] else 0)
+    assert set(want) <= {f for f, _, _ in fields}
+    for field, off, kind in fields:
+        value = struct.unpack_from({"P": "<Q", "i": "<i", "f": "<f"}[kind],
+                                   got, off)[0]
+        assert value == want.get(field, 0), field
+    assert want["layers[1].ki"] == 0 and want["layers[1].kg"] == 16
+
+
+@pytest.mark.parametrize("case", ("dtype", "strided", "device", "rows",
+                                  "count"))
+def test_layer_row_refuses_what_the_kernel_cannot_take(case):
+    rng = np.random.default_rng(1)
+    T = 6
+    parts = list(_layer_tensors(rng, T))
+    if case == "dtype":
+        parts[2] = parts[2].double()
+    elif case == "strided":
+        parts[0] = torch.zeros((5, 32))[:, ::2]
+    elif case == "device":
+        parts[8] = parts[8].to("meta")
+    elif case == "rows":
+        parts[9] = parts[9][:T - 1]
+    else:
+        parts = parts[:9]
+    with pytest.raises(ValueError, match="render_tiles"):
+        K._layer_row(0, (True, True, True), tuple(parts),
+                     torch.device("cpu"), T)
+
+
+def test_default_unit_is_compiled():
+    """The units of a tile the wrappers launch by default, and every unit
+    the smoke test sweeps, are pairs that both kernels' sources compile."""
+    import os
+    import re
+
+    from whisper_git_tpu_torch.render import blocks_kernel as B
+
+    for source, macro in (("raster_tiles.cu", "RASTER_TILES_CASE"),
+                          ("raster_blocks.cu", "RASTER_BLOCKS_CASE")):
+        with open(os.path.join(K.CSRC_DIR, source)) as f:
+            pairs = {(int(w), int(r)) for w, r in re.findall(
+                macro + r"\((\d+), (\d+)\)", f.read())}
+        assert pairs == set(K.UNITS), source
+    assert (K.STRIP_W, K.ROWS_PER_THREAD) in K.UNITS
+    assert (B.STRIP_W, B.ROWS_PER_THREAD) in K.UNITS

@@ -98,10 +98,17 @@ def test_window_scene_records_a_fractional_window(port_renderer):
     assert meta[2][10] == ((0, win_list[0][1]),)
 
 
-def test_oversized_scene_raises(port_renderer):
+
+def test_oversized_scene_renders_its_background(port_renderer):
+    """A scene over MAX_PACKED_PX takes the unquantized f32 path instead
+    of the packed one (tests/test_torch_oversized.py holds that path
+    against the reference's); with no layers it is the background."""
     scene = port_scene.Scene(layers=[], width=P.MAX_PACKED_PX + 1, height=64,
-                             background=(0, 0, 0, 1),
+                             background=(0.1, 0.2, 0.3, 1.0),
                              image_atlas=np.zeros((64, 64, 4), np.uint8))
-    with pytest.raises(NotImplementedError):
-        P.render_scene_device(scene, port_renderer.font_tex_device(),
-                              port_renderer.image_atlas_device())
+    img = P.render_scene_device(scene, port_renderer.font_tex_device(),
+                                port_renderer.image_atlas_device())
+    assert img.shape == (64, P.MAX_PACKED_PX + 1, 4)
+    want = torch.tensor([int(c * 255 + 0.5) for c in (0.1, 0.2, 0.3)]
+                        + [255], dtype=torch.uint8)
+    assert bool((img == want).all())

@@ -59,8 +59,6 @@
 namespace raster {
 
 constexpr int MAX_INLINE_BLOCKS = 64;   // descriptors that ride in the launch
-constexpr int STAGE_PASS = 128;         // bins slots examined at a time
-constexpr int STAGE_CAP = 192;          // commands the shared buffer holds
 
 // One block. Mirrored by _BLOCK_DESC in render/blocks_kernel.py.
 struct BlockDesc {
@@ -95,26 +93,11 @@ struct BlocksParams {
   BlockDesc inline_blocks[MAX_INLINE_BLOCKS];
 };
 
-// One command in shared memory.
-struct __align__(16) Staged {
-  float t[16];     // shape: 16 columns | glyph: quad 8, colour 4 | image: 8
-  float clip[4];
-  Extent e;
-  int cls;
-  int pad[3];
-};
-
 // A pass of the staging: slots [s, s + STAGE_PASS) of block b's row, below
 // hi. b == n_blocks: the walk is over.
 struct Cursor {
   int b, s, hi;
 };
-
-// CTAs an SM should hold: as many as its 65536 registers allow at 128, 96
-// or 64 registers a thread for 16, 8 or 4 rows a thread.
-constexpr int min_ctas(int threads, int n_rows) {
-  return 65536 / (threads * (n_rows >= 16 ? 128 : n_rows >= 8 ? 96 : 64));
-}
 
 // A CTA owns a unit of a tile: STRIP_W columns by ROW_STRIDE * N_ROWS rows,
 // STRIP_W * ROW_STRIDE threads of N_ROWS pixels each. A warp holds 32
@@ -152,12 +135,11 @@ __global__ void __launch_bounds__(STRIP_W * ROW_STRIDE,
     f.b[i] = opaque ? p.bg_b : 0.0f;
     f.a[i] = opaque ? 1.0f : 0.0f;
   }
-  // The pixel centres this CTA owns, bounds inclusive.
-  const float x_lo = ((float)(strip * STRIP_W) + (float)ox) + 0.5f;
-  const float x_hi = ((float)(strip * STRIP_W + STRIP_W - 1) + (float)ox)
-                     + 0.5f;
-  const float y_lo = (float)oy + 0.5f;
-  const float y_hi = ((float)(UNIT_H - 1) + (float)oy) + 0.5f;
+  const UnitBox u = {((float)(strip * STRIP_W) + (float)ox) + 0.5f,
+                     ((float)(strip * STRIP_W + STRIP_W - 1) + (float)ox)
+                         + 0.5f,
+                     (float)oy + 0.5f,
+                     ((float)(UNIT_H - 1) + (float)oy) + 0.5f};
 
   const int n_blocks = p.n_blocks;
   const bool inl = n_blocks <= MAX_INLINE_BLOCKS;
@@ -207,19 +189,8 @@ __global__ void __launch_bounds__(STRIP_W * ROW_STRIDE,
     }
     if (!more || n + STAGE_PASS > STAGE_CAP) {
       __syncthreads();
-#pragma unroll 1
-      for (int j = 0; j < n; ++j) {
-        const Staged& s = buf[j];
-        if (s.cls == 0) {
-          shape_step(f, s.t, s.clip, s.e);
-        } else if (s.cls == 1) {
-          glyph_step(f, s.t, s.t + 8, s.clip, s.e, p.font_tex, p.font_h,
-                     p.font_w);
-        } else {
-          image_step(f, s.t, s.clip, s.e, p.image_atlas, p.atlas_h,
-                     p.atlas_w);
-        }
-      }
+      composite_staged(f, buf, n, p.font_tex, p.font_h, p.font_w,
+                       p.image_atlas, p.atlas_h, p.atlas_w);
       if (!more) break;
       __syncthreads();
       n = 0;
@@ -227,52 +198,7 @@ __global__ void __launch_bounds__(STRIP_W * ROW_STRIDE,
 
     // Stage pass `cur`: each thread's command, if it can ink this unit.
     const BlockDesc& d = blocks[cur.b];
-    const int cls = d.cls;
-    const float* c = nullptr;
-    const float* colour = nullptr;
-    const float* clip = nullptr;
-    Extent e;
-    bool keep = false;
-    if (idx >= 0) {
-      if (cls == 0) {
-        c = d.t0 + (size_t)idx * 16;
-        clip = d.t1 + (size_t)idx * 4;
-      } else if (cls == 1) {
-        c = d.t0 + (size_t)idx * 8;
-        colour = d.t1 + (size_t)idx * 4;
-        clip = d.t2 + (size_t)idx * 4;
-      } else {
-        c = d.t0 + (size_t)idx * 8;
-        clip = d.t1 + (size_t)idx * 4;
-      }
-      e = command_extent(cls, c, clip);
-      keep = e.x1 >= x_lo && e.x0 <= x_hi && e.y1 >= y_lo && e.y0 <= y_hi;
-    }
-    // The survivors keep their z order: a ballot a warp, a prefix over the
-    // staging warps' counts.
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    const int warp = tid / 32, lane = tid % 32;
-    if (tid < STAGE_PASS && lane == 0) s_count[parity][warp] = __popc(ballot);
-    __syncthreads();
-    int base = n, total = 0;
-#pragma unroll
-    for (int w = 0; w < STAGE_PASS / 32; ++w) {
-      const int cw = s_count[parity][w];
-      if (w < warp) base += cw;
-      total += cw;
-    }
-    if (keep) {
-      Staged& s = buf[base + __popc(ballot & ((1u << lane) - 1u))];
-      const int nc = cls == 0 ? 16 : 8;
-      for (int j = 0; j < nc; ++j) s.t[j] = c[j];
-      if (cls == 1) {
-        for (int j = 0; j < 4; ++j) s.t[8 + j] = colour[j];
-      }
-      for (int j = 0; j < 4; ++j) s.clip[j] = clip[j];
-      s.e = e;
-      s.cls = cls;
-    }
-    n += total;
+    n = stage_pass(buf, n, s_count[parity], idx, d.cls, d.t0, d.t1, d.t2, u);
     parity ^= 1;
     cur = nxt;
     idx = idx_nxt;
@@ -305,8 +231,8 @@ int raster_blocks_launch(const raster::BlocksParams* params, int n_tiles,
 #define RASTER_BLOCKS_CASE(W, R)                                           \
   case (W) * 256 + (R):                                                    \
     raster_blocks_kernel<W, R>                                             \
-        <<<n_tiles * (TILE_W / (W)) * (ROWS / (R)), (W) * ROW_STRIDE, 0,   \
-           s>>>(*params);                                                  \
+        <<<n_tiles * (TILE_W / (W)) * (TILE_H / (ROW_STRIDE * (R))),       \
+           (W) * ROW_STRIDE, 0, s>>>(*params);                             \
     break;
   switch (strip_w * 256 + rows) {
     RASTER_BLOCKS_CASE(32, 4)

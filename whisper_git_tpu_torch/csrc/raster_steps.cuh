@@ -8,15 +8,13 @@
 // the library is built with --fmad=false so no multiply-add is contracted
 // and every rounding matches the plain PyTorch version.
 //
-// Layout: a thread owns one column and ROWS rows of it, ROW_STRIDE apart
+// Layout: a thread owns one column and N_ROWS rows of it, ROW_STRIDE apart
 // (`PixelsT`), and the 32 threads of a warp own neighbouring columns of the
 // same rows, so stores coalesce, the x-dependent half of every command is
 // computed once per thread, and a test on a row or on the warp's columns is
-// uniform across the warp. The packed kernel's block of THREADS threads owns
-// a whole tile (thread i: column i % TILE_W, rows i / TILE_W + ROW_STRIDE *
-// r); the blocks kernel gives a block a unit of a tile (a strip of its
-// columns by a band of its rows) and the compose kernel a strip of its rows,
-// on the same struct.
+// uniform across the warp. The tile kernel and the blocks kernel give a block
+// a unit of a tile (a strip of its columns by a band of its rows), the
+// compose kernel a strip of its rows, on the same struct.
 //
 // Work follows ink: `command_extent` gives the rectangle of pixel centres
 // outside which a command's coverage is exactly 0, so that `over` is the
@@ -26,6 +24,12 @@
 // (a division, a `sqrtf`, no contracted multiply-add); the extent removes
 // the part of it that multiplied by 0, and a shape without a border skips
 // the ring's blend, which multiplied by 0 too.
+//
+// Staging (`stage_pass`, `composite_staged`): the tile and blocks kernels
+// walk a tile's bins in passes of STAGE_PASS slots, a slot a thread; each
+// thread drops its command if the extent misses the CTA's unit, and the
+// survivors are written in z order (a ballot and a prefix) into a shared
+// buffer that the compositing loop reads by broadcast.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,41 +39,8 @@ namespace raster {
 constexpr int TILE_H = 64;
 constexpr int TILE_W = 128;
 constexpr int CELL = 64;                           // atlas cell extent
-constexpr int THREADS = 512;
-constexpr int ROWS = TILE_H * TILE_W / THREADS;    // 16 pixels a thread
-constexpr int ROW_STRIDE = THREADS / TILE_W;       // 4
-constexpr int MAX_LAYERS = 4;
+constexpr int ROW_STRIDE = 4;                      // rows a thread skips
 constexpr float SDF_SPREAD = 8.0f;                 // atlas px; 128 = edge
-
-// One layer's command tables (row-major f32) and bins ((T, k) i32, -1 =
-// empty slot). A width of 0 skips the class. Mirrored by _LayerTables in
-// render/raster_kernel.py: keep the two in step.
-struct LayerTables {
-  const float* shapes;        // (NS, 16)
-  const float* shape_clips;   // (NS, 4) x0, y0, x1, y1
-  const float* glyphs;        // (NG, 8) x, y, w, h, u, v, uw, uh
-  const float* glyph_colors;  // (NG, 4) premultiplied rgba
-  const float* glyph_clips;   // (NG, 4)
-  const float* images;        // (NI, 8) x, y, w, h, u, v, uw, uh
-  const float* image_clips;   // (NI, 4)
-  const int* s_bins;
-  const int* g_bins;
-  const int* i_bins;
-  int ks, kg, ki;
-  int pad;
-};
-
-// Mirrored by _RasterParams in render/raster_kernel.py.
-struct RasterParams {
-  LayerTables layers[MAX_LAYERS];
-  const unsigned char* font_tex;     // (font_h, font_w) SDF, 128 = edge
-  int font_h, font_w;
-  const unsigned char* image_atlas;  // (atlas_h, atlas_w, 4) rgba
-  int atlas_h, atlas_w;
-  float bg_r, bg_g, bg_b;
-  int n_layers, tiles_x, tiles_y, height, width;
-  unsigned char* out;                // (height, width, 4)
-};
 
 // This thread's pixels: one column, N_ROWS rows STRIDE apart, premultiplied
 // RGBA. Row i lies at row0 + i * STRIDE below `oy`.
@@ -86,8 +57,6 @@ struct PixelsT {
     return ((float)(row0 + i * STRIDE) + oy) + 0.5f;
   }
 };
-
-using Pixels = PixelsT<ROWS, ROW_STRIDE>;
 
 __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
@@ -408,6 +377,113 @@ __device__ __forceinline__ void store_i16(const PX& f, int x, int oy,
       o4[(size_t)y * width + x] =
           make_short4(quantize_i16(f.r[i]), quantize_i16(f.g[i]),
                       quantize_i16(f.b[i]), quantize_i16(f.a[i]));
+    }
+  }
+}
+
+// ---- Staging: a tile's commands in shared memory, culled to a unit --------
+
+constexpr int STAGE_PASS = 128;   // bins slots examined at a time
+constexpr int STAGE_CAP = 192;    // commands the shared buffer holds
+
+// CTAs an SM should hold: as many as its 65536 registers allow at 128, 96
+// or 64 registers a thread for 16, 8 or 4 rows a thread.
+constexpr int min_ctas(int threads, int n_rows) {
+  return 65536 / (threads * (n_rows >= 16 ? 128 : n_rows >= 8 ? 96 : 64));
+}
+
+// One command in shared memory.
+struct __align__(16) Staged {
+  float t[16];     // shape: 16 columns | glyph: quad 8, colour 4 | image: 8
+  float clip[4];
+  Extent e;
+  int cls;
+  int pad[3];
+};
+
+// The pixel centres a CTA owns, bounds inclusive.
+struct UnitBox {
+  float x_lo, x_hi, y_lo, y_hi;
+};
+
+// Stage one pass. This thread's slot holds command `idx` (-1: none) of
+// class `cls` (0 shapes, 1 glyphs, 2 images), whose tables are
+// t0: shapes (N,16) | glyphs (N,8)       | images (N,8)
+// t1: shape_clips   | glyph_colors (N,4) | image_clips
+// t2: unused        | glyph_clips (N,4)  | unused;
+// it is kept if its extent meets the unit. The survivors are written after
+// the `n` commands staged before, in slot order: a ballot a warp, a prefix
+// over the counts of the first STAGE_PASS / 32 warps (`s_count`, one of two
+// arrays taken in turns, so that no pass overwrites what the last one's
+// prefix still reads). Every thread of the CTA calls it. → the new count.
+__device__ __forceinline__ int stage_pass(Staged* buf, int n, int* s_count,
+                                          int idx, int cls,
+                                          const float* t0, const float* t1,
+                                          const float* t2, const UnitBox& u) {
+  const float* c = nullptr;
+  const float* colour = nullptr;
+  const float* clip = nullptr;
+  Extent e;
+  bool keep = false;
+  if (idx >= 0) {
+    if (cls == 0) {
+      c = t0 + (size_t)idx * 16;
+      clip = t1 + (size_t)idx * 4;
+    } else if (cls == 1) {
+      c = t0 + (size_t)idx * 8;
+      colour = t1 + (size_t)idx * 4;
+      clip = t2 + (size_t)idx * 4;
+    } else {
+      c = t0 + (size_t)idx * 8;
+      clip = t1 + (size_t)idx * 4;
+    }
+    e = command_extent(cls, c, clip);
+    keep = e.x1 >= u.x_lo && e.x0 <= u.x_hi && e.y1 >= u.y_lo
+           && e.y0 <= u.y_hi;
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  if (tid < STAGE_PASS && lane == 0) s_count[warp] = __popc(ballot);
+  __syncthreads();
+  int base = n, total = 0;
+#pragma unroll
+  for (int w = 0; w < STAGE_PASS / 32; ++w) {
+    const int cw = s_count[w];
+    if (w < warp) base += cw;
+    total += cw;
+  }
+  if (keep) {
+    Staged& s = buf[base + __popc(ballot & ((1u << lane) - 1u))];
+    const int nc = cls == 0 ? 16 : 8;
+    for (int j = 0; j < nc; ++j) s.t[j] = c[j];
+    if (cls == 1) {
+      for (int j = 0; j < 4; ++j) s.t[8 + j] = colour[j];
+    }
+    for (int j = 0; j < 4; ++j) s.clip[j] = clip[j];
+    s.e = e;
+    s.cls = cls;
+  }
+  return n + total;
+}
+
+// Composite the `n` staged commands onto this thread's pixels, in order.
+// The caller synchronizes the CTA before (the buffer is written) and after
+// (it is written again).
+template <class PX>
+__device__ __forceinline__ void composite_staged(
+    PX& f, const Staged* buf, int n, const unsigned char* __restrict__ font,
+    int font_h, int font_w, const unsigned char* __restrict__ atlas,
+    int atlas_h, int atlas_w) {
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {
+    const Staged& s = buf[j];
+    if (s.cls == 0) {
+      shape_step(f, s.t, s.clip, s.e);
+    } else if (s.cls == 1) {
+      glyph_step(f, s.t, s.t + 8, s.clip, s.e, font, font_h, font_w);
+    } else {
+      image_step(f, s.t, s.clip, s.e, atlas, atlas_h, atlas_w);
     }
   }
 }

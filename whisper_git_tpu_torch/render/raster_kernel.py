@@ -19,6 +19,15 @@ result is quantized to (H, W, 4) u8 with clip(x·255 + 0.5).
 `render_tiles_plain`; a CUDA tensor launches the kernel in
 `csrc/raster_tiles.cu` (built with nvcc on first use, loaded with ctypes)
 or raises. `render_tiles.launches` counts kernel launches.
+
+What bounds the kernel on the card is the step functions' scalar f32
+arithmetic on the pixels a command inks. Its design: a CTA owns a unit of
+a tile, `STRIP_W` columns by 4 x `ROWS_PER_THREAD` rows (32 x 16: 16 CTAs
+a tile), so a busy tile spreads over many SMs; the tile's bins are staged
+in shared memory layer by layer and class by class, culled to the unit by
+each command's extent (`command_extents`), in z order; the per-layer
+tables ride in the launch's parameter block, packed with `struct` in one
+call a layer.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
@@ -330,29 +340,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _TABLES = ("shapes", "shape_clips", "glyphs", "glyph_colors", "glyph_clips",
            "images", "image_clips")
+_BINS = ("s_bins", "g_bins", "i_bins")
+
+# The unit of a tile a CTA owns: STRIP_W columns by 4 * ROWS_PER_THREAD
+# rows. 32 x 16 (16 CTAs a tile) is the default; UNITS are the (STRIP_W,
+# ROWS_PER_THREAD) pairs that csrc/raster_tiles.cu and raster_blocks.cu
+# compile.
+STRIP_W = 32
+ROWS_PER_THREAD = 4
+UNITS = ((32, 4), (64, 4), (32, 8), (32, 16), (128, 16))
 
 
-class _LayerTables(ctypes.Structure):
-    """Mirror of `LayerTables` in csrc/raster_steps.cuh."""
-    _fields_ = ([(name, ctypes.c_void_p) for name in _TABLES]
-                + [("s_bins", ctypes.c_void_p), ("g_bins", ctypes.c_void_p),
-                   ("i_bins", ctypes.c_void_p), ("ks", ctypes.c_int),
-                   ("kg", ctypes.c_int), ("ki", ctypes.c_int),
-                   ("pad", ctypes.c_int)])
-
-
-class _RasterParams(ctypes.Structure):
-    """Mirror of `RasterParams` in csrc/raster_steps.cuh."""
-    _fields_ = [("layers", _LayerTables * MAX_LAYERS),
-                ("font_tex", ctypes.c_void_p), ("font_h", ctypes.c_int),
-                ("font_w", ctypes.c_int),
-                ("image_atlas", ctypes.c_void_p), ("atlas_h", ctypes.c_int),
-                ("atlas_w", ctypes.c_int),
-                ("bg_r", ctypes.c_float), ("bg_g", ctypes.c_float),
-                ("bg_b", ctypes.c_float),
-                ("n_layers", ctypes.c_int), ("tiles_x", ctypes.c_int),
-                ("tiles_y", ctypes.c_int), ("height", ctypes.c_int),
-                ("width", ctypes.c_int), ("out", ctypes.c_void_p)]
+# `RasterParams` of csrc/raster_tiles.cu as bytes: a `LayerTables` row a
+# layer (its ten pointers, the three widths, the pad), empty rows up to
+# MAX_LAYERS, then the atlases, background, grid and output.
+_LAYER_PACK = struct.Struct("<10Q4i")
+_TAIL_PACK = struct.Struct("<Q2iQ2i3f5iQ")
+_NO_LAYER = bytes(_LAYER_PACK.size)
 
 
 def new_library_state() -> dict:
@@ -417,16 +421,14 @@ def build_library(state: dict, source: str, bind) -> dict:
 
 def _bind(lib) -> None:
     lib.raster_tiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p]
     lib.raster_tiles_launch.restype = ctypes.c_int
     lib.raster_tiles_error_string.argtypes = [ctypes.c_int]
     lib.raster_tiles_error_string.restype = ctypes.c_char_p
-    lib.raster_params_size.argtypes = []
-    lib.raster_params_size.restype = ctypes.c_int
-    if lib.raster_params_size() != ctypes.sizeof(_RasterParams):
-        raise RuntimeError(
-            f"RasterParams is {lib.raster_params_size()} bytes in C, "
-            f"{ctypes.sizeof(_RasterParams)} in ctypes")
+    check_layout(lib, (("raster_params_size",
+                        MAX_LAYERS * _LAYER_PACK.size + _TAIL_PACK.size,
+                        "sizeof(RasterParams)"),))
 
 
 def check_layout(lib, checks) -> None:
@@ -512,6 +514,42 @@ def check_frame_fits(height, width, tiles_y, tiles_x, who: str):
                          f"fit {tiles_x}x{tiles_y} tiles")
 
 
+def _layer_row(li: int, sig: tuple, parts, device, T: int) -> bytes:
+    """Layer `li`'s `LayerTables` row: its seven f32 tables and three bins
+    tables checked (contiguous, 2-d, on `device`; the bins' T rows) and
+    their pointers packed, a class the layer does not draw at width 0.
+    Raises on the first tensor the kernel cannot take."""
+    if len(parts) != 10:
+        raise ValueError(f"render_tiles: layer {li} has {len(parts)} "
+                         "tensors, expected 7 tables and 3 bins")
+    f32, i32 = torch.float32, torch.int32
+    for i, t in enumerate(parts):
+        if t.dtype is not (f32 if i < 7 else i32) or t.ndim != 2 \
+                or not t.is_contiguous() or t.device != device:
+            check_tensor(t, f"layer {li} {(_TABLES + _BINS)[i]}",
+                         f32 if i < 7 else i32, device, 2)
+    s_bins, g_bins, i_bins = parts[7:]
+    if not s_bins.shape[0] == g_bins.shape[0] == i_bins.shape[0] == T:
+        raise ValueError(f"render_tiles: layer {li} bins have "
+                         f"{s_bins.shape[0]}, {g_bins.shape[0]} and "
+                         f"{i_bins.shape[0]} rows for {T} tiles")
+    return _LAYER_PACK.pack(
+        *[t.data_ptr() for t in parts],
+        s_bins.shape[1] if sig[0] else 0, g_bins.shape[1] if sig[1] else 0,
+        i_bins.shape[1] if sig[2] else 0, 0)
+
+
+def _pack_params(rows, font_tex, image_atlas, background, tiles_y, tiles_x,
+                height, width, out) -> bytes:
+    """The `RasterParams` block: the layers' rows (`_layer_row`), empty rows
+    up to MAX_LAYERS, the atlases, background, grid and output."""
+    return b"".join(rows) + _NO_LAYER * (MAX_LAYERS - len(rows)) \
+        + _TAIL_PACK.pack(font_tex.data_ptr(), *font_tex.shape,
+                          image_atlas.data_ptr(), *image_atlas.shape[:2],
+                          *(float(c) for c in background[:3]), len(rows),
+                          tiles_x, tiles_y, height, width, out.data_ptr())
+
+
 def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
             tiles_x, layer_sig, height, width) -> torch.Tensor:
     device = font_tex.device
@@ -521,39 +559,16 @@ def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
                          f"kernel takes at most {MAX_LAYERS}")
     check_frame_fits(height, width, tiles_y, tiles_x, "render_tiles")
     check_atlases(font_tex, image_atlas, device, "render_tiles")
-    build()
+    if _LIB["lib"] is None:
+        build()
     lib = _LIB["lib"]
-    p = _RasterParams()
-    for li, sig in enumerate(layer_sig):
-        lt = p.layers[li]
-        parts = layer_data[li]
-        for name, t in zip(_TABLES, parts[:7]):
-            check_tensor(t, f"layer {li} {name}", torch.float32, device, 2)
-            setattr(lt, name, t.data_ptr())
-        for ci, (bname, kname) in enumerate((("s_bins", "ks"),
-                                             ("g_bins", "kg"),
-                                             ("i_bins", "ki"))):
-            bins = parts[7 + ci]
-            check_tensor(bins, f"layer {li} {bname}", torch.int32, device,
-                         2)
-            if bins.shape[0] != T:
-                raise ValueError(f"render_tiles: layer {li} {bname} has "
-                                 f"{bins.shape[0]} rows for {T} tiles")
-            setattr(lt, bname, bins.data_ptr())
-            # A class the layer does not draw gets width 0: no loop.
-            setattr(lt, kname, bins.shape[1] if sig[ci] else 0)
-    p.font_tex = font_tex.data_ptr()
-    p.font_h, p.font_w = font_tex.shape
-    p.image_atlas = image_atlas.data_ptr()
-    p.atlas_h, p.atlas_w = image_atlas.shape[:2]
-    p.bg_r, p.bg_g, p.bg_b = (float(c) for c in background[:3])
-    p.n_layers = len(layer_sig)
-    p.tiles_x, p.tiles_y = tiles_x, tiles_y
-    p.height, p.width = height, width
+    rows = [_layer_row(li, sig, layer_data[li], device, T)
+            for li, sig in enumerate(layer_sig)]
     out = torch.empty((height, width, 4), dtype=torch.uint8, device=device)
-    p.out = out.data_ptr()
+    params = _pack_params(rows, font_tex, image_atlas, background, tiles_y,
+                         tiles_x, height, width, out)
     rc = launch_on(device, lambda stream: lib.raster_tiles_launch(
-        ctypes.byref(p), T, stream))
+        params, T, STRIP_W, ROWS_PER_THREAD, stream))
     if rc != 0:
         raise RuntimeError("raster_tiles kernel launch failed: "
                            + lib.raster_tiles_error_string(rc).decode())

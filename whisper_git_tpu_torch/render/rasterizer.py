@@ -9,7 +9,10 @@ wire format is the reference's too: one i32 blob per frame whose i16 half
 carries every command table quantized to fixed point (`_PART_SPECS`), and
 one cached i16 blob per scroll window. The device half de-quantizes the
 blobs, shifts scroll windows into screen space and concatenates each
-layer's tables (plain torch ops), then runs the tile kernel.
+layer's tables (plain torch ops), then runs the tile kernel. A scene
+over MAX_PACKED_PX, which the i16 wire format cannot hold, skips it:
+`_render_scene_f32_device` splices its windows inline, bins its plain f32
+tables on the host and runs the same kernel.
 
 Frame model: for each layer, shapes, then image quads, then glyph quads,
 composited per 64×128 tile over the commands binned to that tile.
@@ -28,8 +31,8 @@ K_GLYPHS = 512
 K_IMAGES = 32
 
 # i16 wire-format ceiling: screen geometry quantizes at 1/8 px, so any
-# coordinate beyond ±4095.875 px would clamp. Larger scenes take the
-# reference's unquantized f32 path, which the port does not have yet.
+# coordinate beyond ±4095.875 px would clamp. Larger scenes (5K and 8K
+# screenshots) take the unquantized f32 path, `_render_scene_f32_device`.
 MAX_PACKED_PX = 4095
 
 
@@ -335,6 +338,16 @@ def _bin_indexed(b: np.ndarray, cmd_ids: np.ndarray, tiles_y: int,
     return bins, overflow
 
 
+def _bin_commands(boxes: np.ndarray, n: int, tiles_y: int, tiles_x: int,
+                  k: int) -> tuple[np.ndarray, int]:
+    """boxes: (N, 4) x0, y0, x1, y1. → (T, k) i32 index lists padded with
+    −1 (in submission order), plus the overflow count."""
+    if n == 0:
+        return np.full((tiles_y * tiles_x, 8), -1, np.int32), 0
+    return _bin_indexed(boxes[:n], np.arange(n, dtype=np.int64), tiles_y,
+                        tiles_x, k)
+
+
 def pack_scene(scene: Scene
                ) -> tuple[np.ndarray, tuple, int, int, list]:
     """→ (fused_blob_i32, meta, tiles_y, tiles_x, win_list). `meta` is the
@@ -591,6 +604,38 @@ def _device_window_blob(uid, caps, blob: np.ndarray,
     return d
 
 
+def _render_scene_f32_device(scene: Scene, font_tex: torch.Tensor,
+                             image_atlas: torch.Tensor) -> torch.Tensor:
+    """Oversized-scene path: commands go to the device as plain f32 (no i16
+    quantization), with scroll windows spliced inline on the host at their
+    exact z-positions (`Scene.inline_windows`), binned per layer and class,
+    and rasterized by one `render_tiles` call."""
+    flat = scene.inline_windows()
+    device = font_tex.device
+    tiles_x = -(-flat.width // TILE_W)
+    tiles_y = -(-flat.height // TILE_H)
+    layer_data = []
+    layer_sig = []
+    for lb in flat.layers:
+        bins = (
+            _bin_commands(_shape_boxes(lb.shapes, lb.n_shapes), lb.n_shapes,
+                          tiles_y, tiles_x, K_SHAPES)[0],
+            _bin_commands(_quad_boxes(lb.glyphs, lb.n_glyphs), lb.n_glyphs,
+                          tiles_y, tiles_x, K_GLYPHS)[0],
+            _bin_commands(_quad_boxes(lb.images, lb.n_images), lb.n_images,
+                          tiles_y, tiles_x, K_IMAGES)[0])
+        layer_data.append(tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (lb.shapes, lb.shape_clips, lb.glyphs, lb.glyph_colors,
+                      lb.glyph_clips, lb.images, lb.image_clips) + bins))
+        layer_sig.append((lb.n_shapes > 0, lb.n_glyphs > 0,
+                          lb.n_images > 0))
+    return render_tiles(tuple(layer_data), font_tex, image_atlas,
+                        tuple(float(c) for c in flat.background[:3]),
+                        tiles_y, tiles_x, tuple(layer_sig), flat.height,
+                        flat.width)
+
+
 def render_scene_device(scene: Scene, font_tex: torch.Tensor,
                         image_atlas: torch.Tensor | None = None
                         ) -> torch.Tensor:
@@ -598,7 +643,9 @@ def render_scene_device(scene: Scene, font_tex: torch.Tensor,
     readback). font_tex: (FH, FW) u8; image_atlas: (AH, AW, 4) u8, by
     default the scene's own.
 
-    Default path: the layer-image compose pipeline (render/compose.py:
+    A scene wider or taller than MAX_PACKED_PX takes the oversized f32
+    path (`_render_scene_f32_device`, the tile kernel). Otherwise, the
+    default path: the layer-image compose pipeline (render/compose.py:
     cached chrome layers and scroll slabs, one blend by the compose
     kernel; within 1 u8 of the packed path). WGIT_FRAME_COMPOSE=0, or a
     scene compose declines (a fractional scroll offset), drops to the
@@ -609,13 +656,11 @@ def render_scene_device(scene: Scene, font_tex: torch.Tensor,
     from . import compose as C
     from . import frame as F
 
-    if max(scene.width, scene.height) > MAX_PACKED_PX:
-        raise NotImplementedError(
-            f"scene {scene.width}x{scene.height} exceeds the packed path's "
-            f"{MAX_PACKED_PX} px; the unquantized f32 path is not ported")
     device = font_tex.device
     if image_atlas is None:
         image_atlas = torch.from_numpy(scene.image_atlas).to(device)
+    if max(scene.width, scene.height) > MAX_PACKED_PX:
+        return _render_scene_f32_device(scene, font_tex, image_atlas)
     if F.frame_cache_enabled():
         if C.compose_enabled():
             img = C.render_frame_composed(scene, font_tex, image_atlas)
