@@ -76,6 +76,25 @@ each fatal on failure:
               and of the frame cache, and the device events of one plan
               build (torch.profiler): a steady composed frame copies at
               most its blob, and no quantize pass follows a layer build
+  8. present  the presenter's `_downsample` on the card within 1 u8 of the
+              CPU's (the history view and seeded frames, at terminal, sixel
+              and 1:1 sizes); `TermDisplay` fed CUDA frames through its
+              pinned ring and present thread, two grid sizes: every
+              presented grid its frame's downsample, in order, the last
+              frame presented
+  9. loop     the port's CLI on a pty on the card (`python -m
+              whisper_git_tpu_torch <repo>`): alt screen, first half-block
+              frame, a repaint after a click and after typing a search, the
+              Escape ladder quits with rc 0 and the terminal restored (each
+              timed); then in this process `run_loop(app, max_frames=5)`
+              under WGIT_FRAME_DUMP: K3 launched once for each composed
+              frame, K1 never, and the dump `torch.equal` to
+              `render_scene_device` of the same state
+  10. bench   `python -m whisper_git_tpu_torch.bench` at the reference's
+              counts (80 frames a batch, 12 batches): its JSON line logged;
+              fails on a missing field or a non-positive rate
+  11. diffword  the word diff's ranges on the card equal to the CPU's and
+              to the scalar `intra_line_highlight` on seeded pairs
 
 Tolerances: K1 and K2 0 u8 from their plain versions (an f32 layer in
 units of 1/255) where only shapes are drawn (elementwise f32 on both
@@ -155,45 +174,13 @@ def log(msg: str) -> None:
 
 
 def build_history_repo(base: str, n_commits: int = 240) -> str:
-    """The bench's fixture repository (bench.py `build_history_repo`):
-    ~240 empty commits with feature branches merged every 17 commits, a
-    tag and an untracked file, on pinned dates."""
-    path = os.path.join(base, "bench-repo")
-    env = dict(os.environ, GIT_TERMINAL_PROMPT="0")
+    """The bench's fixture repository (the port's bench
+    `whisper_git_tpu_torch/bench.py::build_history_repo`, a copy of the
+    reference's): ~240 empty commits with feature branches merged every 17
+    commits, a tag and an untracked file, on pinned dates."""
+    from whisper_git_tpu_torch.bench import build_history_repo as build
 
-    def git(*args):
-        subprocess.run(["git", "-C", path, *args], check=True,
-                       capture_output=True, env=env)
-
-    os.makedirs(path, exist_ok=True)
-    subprocess.run(["git", "init", "-q", "-b", "main", path], check=True,
-                   capture_output=True, env=env)
-    git("config", "user.email", "bench@example.com")
-    git("config", "user.name", "Bench Author")
-    git("commit", "--allow-empty", "-m", "initial commit")
-    ts = 1_700_000_000
-    i = 0
-    while i < n_commits:
-        env["GIT_AUTHOR_DATE"] = env["GIT_COMMITTER_DATE"] = str(ts + i * 3600)
-        if i % 17 == 13:
-            git("checkout", "-q", "-b", f"feature/{i}")
-            git("commit", "--allow-empty", "-m",
-                f"feature work {i}: adjust widget layout and colors")
-            i += 1
-            git("checkout", "-q", "main")
-            env["GIT_AUTHOR_DATE"] = env["GIT_COMMITTER_DATE"] = str(
-                ts + i * 3600)
-            git("merge", "--no-ff", "-m", f"merge feature/{i - 1}",
-                f"feature/{i - 1}")
-        else:
-            git("commit", "--allow-empty", "-m",
-                f"commit {i}: fix rendering of lane {i % 6} and tidy up the "
-                "status pills")
-        i += 1
-    git("tag", "v1.0")
-    with open(os.path.join(path, "dirty.txt"), "w") as f:
-        f.write("uncommitted\n")
-    return path
+    return build(base, n_commits)
 
 
 def diff_stats(a, b) -> tuple[float, float]:
@@ -1468,6 +1455,9 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     if rounding:
         fail(f"a plan build ran a quantize pass in torch ops: {rounding}")
 
+    # ---- 8-11. the presenter, the loop, the bench, word diff ------------
+    run_host_phases(torch, card, work, repo, composed["frames"][0.0])
+
     def row(name, stem, replaces, bound):
         return {"name": stem, "route": "cuda",
                 "source": f"whisper_git_tpu_torch/csrc/{stem}.cu",
@@ -1486,6 +1476,290 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         if min(r["ms"], min(alone[name])) < r["bound_ms"]:
             fail(f"{r['name']} reads faster than its bound: {r}")
     return kernels
+
+
+def read_png(path: str):
+    """(H, W, 4) u8 of a PNG the port wrote (`renderer.png_bytes`: 8-bit
+    RGBA, no filtering); the machine with the card has no Pillow."""
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w * 4 + 1)
+    if raw[:, 0].any():
+        fail(f"{path}: a filtered PNG row")
+    return raw[:, 1:].reshape(h, w, 4)
+
+
+def run_host_phases(torch, card: str, work: str, repo: str, frame) -> None:
+    """Phases 8-11: the presenter, the interactive loop, the bench and the
+    word diff on the card. `frame` is a composed history frame."""
+    import io
+
+    import numpy as np
+
+    from whisper_git_tpu_torch.gitcore.diff import intra_line_highlight
+    from whisper_git_tpu_torch.host import term_display as TD
+    from whisper_git_tpu_torch.host.loop import run_loop
+    from whisper_git_tpu_torch.host.main import open_app
+    from whisper_git_tpu_torch.host.screenshot_mode import compile_frame
+    from whisper_git_tpu_torch.ops import diffword
+    from whisper_git_tpu_torch.render import blocks_kernel as B
+    from whisper_git_tpu_torch.render import compose as C
+    from whisper_git_tpu_torch.render import compose_kernel as CK
+    from whisper_git_tpu_torch.render import raster_kernel as K
+    from whisper_git_tpu_torch.render.rasterizer import render_scene_device
+    from whisper_git_tpu_torch.render.renderer import get_renderer
+    from whisper_git_tpu_torch.tools import ptydrive as PD
+
+    dev = torch.device("cuda")
+    W, H = VIEWPORT
+
+    # ---- 8. present ---------------------------------------------------------
+    gen = torch.Generator().manual_seed(0)
+    frames = [frame] + [torch.randint(0, 256, (H, W, 4), generator=gen,
+                                      dtype=torch.uint8).to(dev)
+                        for _ in range(2)]
+    sizes = ((78, 120), (96, 200), (60, 100), (450, 720), (H, W))
+    worst = 0
+    for i, f in enumerate(frames):
+        for rows2, cols in sizes:
+            got = TD._downsample(f, rows2, cols)
+            want = TD._downsample(f.cpu(), rows2, cols)
+            if tuple(got.shape) != (rows2, cols, 3) or not got.is_cuda:
+                fail(f"_downsample on the card: {tuple(got.shape)} on "
+                     f"{got.device}")
+            mx = int((got.cpu().int() - want.int()).abs().max().item())
+            worst = max(worst, mx)
+            if mx > 1:
+                fail(f"_downsample to {rows2}x{cols}: the card's grid {mx} "
+                     "u8 from the CPU's")
+    log(f"present: _downsample on the card within {worst} u8 of the CPU's "
+        f"on {len(frames)} frames (the history view, two seeded) at "
+        + ", ".join(f"{r}x{c}" for r, c in sizes))
+
+    # TermDisplay fed CUDA frames through its pinned ring and present
+    # thread, a slow present forcing the mailbox to drop; a resize
+    # between two rounds reallocates the ring.
+    shown = [torch.full((H, W, 4), 0, dtype=torch.uint8, device=dev)
+             for _ in range(40)]
+    for i, f in enumerate(shown):
+        f[..., 0] = i * 6
+        f[: (i + 1) * 20, :, 1] = 200
+    presented = []
+
+    def recording_fetch(item):
+        grid = np.array(TD.TermDisplay._fetch(item))
+        presented.append(grid)
+        time.sleep(0.004)
+        return grid
+
+    display = TD.TermDisplay(VIEWPORT, out=io.StringIO())
+    display._refresh_size = lambda: None
+    display._fetch = recording_fetch
+    rounds = []
+    with display:
+        for rows in (39, 30):
+            display.rows, display.cols = rows, 120
+            display._prev = None
+            want = [TD._downsample(f, 2 * rows, 120).cpu().numpy()
+                    for f in shown]
+            n0 = len(presented)
+            for f in shown:
+                display.show(f)
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline and not (
+                    len(presented) > n0
+                    and np.array_equal(presented[-1], want[-1])):
+                time.sleep(0.01)
+            got = presented[n0:]
+            idx = []
+            for g in got:
+                hits = [i for i, w in enumerate(want)
+                        if w.shape == g.shape and np.array_equal(w, g)]
+                if not hits:
+                    fail(f"present: a grid presented at {rows} rows is no "
+                         "frame's downsample")
+                idx.append(hits[0])
+            if not idx or idx[-1] != len(shown) - 1 or idx != sorted(idx):
+                fail(f"present: frames presented out of order or the last "
+                     f"missing: {idx}")
+            rounds.append((rows, len(idx), display._ring_shape))
+        display.check()
+    log("present: TermDisplay on CUDA frames through the pinned ring: "
+        + "; ".join(f"{rows} rows, {n} of {len(shown)} presented (latest "
+                    f"wins), ring {shape}" for rows, n, shape in rounds)
+        + "; every presented grid its frame's downsample, the last frame "
+        "presented")
+
+    # ---- 9. loop --------------------------------------------------------------
+    env = dict(os.environ)
+    for var in ("WGIT_FRAME_DUMP", "WGIT_NO_INPUT", "WGIT_DEVICE"):
+        env.pop(var, None)
+    master, slave = PD.open_sized_pty(30, 100, 800, 480)
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", "whisper_git_tpu_torch",
+                             repo], stdin=slave, stdout=slave,
+                            stderr=subprocess.PIPE, env=env, cwd=ROOT,
+                            close_fds=True)
+    os.close(slave)
+    buf = bytearray()
+    try:
+        if not PD.wait_for(master, buf, PD.ALT_ENTER, 60):
+            fail("loop: the CLI entered no alt screen")
+        t_alt = time.monotonic() - t0
+        if not PD.wait_for(master, buf, PD.HALF_BLOCK, 120):
+            fail("loop: the CLI painted no frame")
+        t_first = time.monotonic() - t0
+        PD.drain(master, buf, 1.0)
+        PD.drain_pending(master, buf)
+        os.write(master, b"\x1b[<0;40;6M\x1b[<0;40;6m")   # click+release
+        t_click = PD.wait_growth(master, buf, 8.0)
+        if t_click is None:
+            fail("loop: no repaint after a click")
+        os.write(master, b"/")
+        time.sleep(0.2)
+        PD.drain_pending(master, buf)
+        os.write(master, b"commit")
+        t_search = PD.wait_growth(master, buf, 8.0)
+        if t_search is None:
+            fail("loop: no repaint after typing a search")
+        for _ in range(8):   # the Escape ladder: search, selection, quit
+            os.write(master, b"\x1b")
+            PD.drain(master, buf, 0.35)
+            if proc.poll() is not None:
+                break
+        end = time.monotonic() + 30
+        while proc.poll() is None and time.monotonic() < end:
+            PD.drain(master, buf, 0.25)
+        if proc.poll() is None:
+            fail("loop: the CLI did not exit after the Escape ladder")
+        PD.drain(master, buf, 0.5)
+        if proc.returncode != 0 or PD.ALT_EXIT not in buf:
+            fail(f"loop: the CLI exited {proc.returncode} (terminal "
+                 f"restored: {PD.ALT_EXIT in buf}): "
+                 f"{proc.stderr.read()[-2000:].decode('utf-8', 'replace')}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stderr.close()
+        os.close(master)
+    log(f"loop [{card}]: the CLI on a 100x30 pty: alt screen at "
+        f"{t_alt:.3f} s, first half-block frame at {t_first:.3f} s after "
+        f"the spawn; first repaint bytes {t_click * 1e3:.1f} ms after a "
+        f"click and {t_search * 1e3:.1f} ms after typing a search (the "
+        "dirty dot's pulse repaints every 0.15 s besides); the Escape "
+        "ladder quit with rc 0, the terminal restored")
+
+    # In this process: run_loop on the card, its dump held against
+    # render_scene_device of the same state.
+    dump = os.path.join(work, "loop-dump.png")
+    os.environ["WGIT_NO_INPUT"] = "1"
+    os.environ["WGIT_FRAME_DUMP"] = dump
+    app = open_app([repo])
+    composed = []
+    real_composed = C.render_frame_composed
+
+    def counting(*a, **k):
+        out = real_composed(*a, **k)
+        composed.append(out is not None)
+        return out
+
+    C.render_frame_composed = counting
+    K.render_tiles.launches = 0
+    B.render_tiles_blocks.launches = 0
+    CK.compose_tiles.launches = 0
+    try:
+        rc = run_loop(app, max_frames=5)
+        torch.cuda.synchronize()
+    finally:
+        C.render_frame_composed = real_composed
+        del os.environ["WGIT_NO_INPUT"], os.environ["WGIT_FRAME_DUMP"]
+    loop_launches = (K.render_tiles.launches, B.render_tiles_blocks.launches,
+                     CK.compose_tiles.launches)
+    n_composed = sum(composed)
+    if rc != 0 or not n_composed or loop_launches[2] != n_composed \
+            or loop_launches[0] != 0:
+        fail(f"loop: run_loop returned {rc}; {n_composed} composed frames, "
+             f"(K1, K2, K3) launches {loop_launches}")
+    renderer = get_renderer("cuda")
+    want = render_scene_device(
+        compile_frame(app, renderer, int(app.config.window_width),
+                      int(app.config.window_height)),
+        renderer.font_tex_device(), renderer.image_atlas_device())
+    got = torch.from_numpy(read_png(dump).copy()).to(dev)
+    if not torch.equal(got, want):
+        mx, _ = diff_stats(got, want)
+        fail(f"loop: the frame dump is {mx} u8 from render_scene_device of "
+             "the same state")
+    log(f"loop: run_loop(app, max_frames=5) on the card: {len(composed)} "
+        f"frames rendered, {n_composed} composed; (K1, K2, K3) launches "
+        f"{loop_launches}; the dump torch.equal to render_scene_device of "
+        "the same state")
+
+    # ---- 10. bench ------------------------------------------------------------
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "whisper_git_tpu_torch.bench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=900)
+    if res.returncode != 0:
+        fail(f"bench exited {res.returncode}: {res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    bench = json.loads(lines[-1]) if lines else {}
+    rates = ("value", "median_fps", "device_fps", "presented_fps",
+             "latency_p50_ms", "present_latency_p50_ms",
+             "device_ms_per_frame", "oversized_ms", "rebuild_ms_max",
+             "first_frame_present_s")
+    for key in rates + ("vs_baseline", "device_busy_share",
+                        "present_drop_rate", "rebuild_ms_p50",
+                        "kernel_build_s", "kernels_built", "setup_s",
+                        "iters_per_batch", "batches_fps", "device"):
+        if bench.get(key) is None:
+            fail(f"bench: no {key} in its line: {lines[-1:]}")
+    bad = [k for k in rates if not bench[k] > 0]
+    if bad or bench["metric"] != "history_view_frame_render" \
+            or len(bench["batches_fps"]) != 12 \
+            or bench["iters_per_batch"] != 80:
+        fail(f"bench: non-positive {bad} or not the reference's counts: "
+             f"{bench}")
+    for line in res.stderr.strip().splitlines()[-4:]:
+        log(f"bench: {line}")
+    log(f"bench [{card}] ({time.perf_counter() - t0:.1f} s): {lines[-1]}")
+
+    # ---- 11. diffword ---------------------------------------------------------
+    import random
+
+    rnd = random.Random(0)
+    words = ["let", "x", "=", "5;", "héllo", "wörld", "日本語", "🙂", "",
+             "a" * 70, "é" * 40, "fn", "return"]
+    olds, news = [], []
+    for _ in range(300):
+        old = " ".join(rnd.choice(words) for _ in range(rnd.randrange(9)))
+        parts = old.split(" ")
+        parts.insert(rnd.randrange(len(parts) + 1), rnd.choice(words))
+        olds.append(old)
+        news.append(" ".join(parts))
+    got = diffword.batched_highlights(olds, news, device="cuda")
+    want = diffword.batched_highlights(olds, news, device="cpu")
+    if got != want or got != [intra_line_highlight(o, n)
+                              for o, n in zip(olds, news)]:
+        fail("diffword: the card's ranges differ from the CPU's or the "
+             "scalar highlight's")
+    log(f"diffword: {len(olds)} seeded pairs on the card equal to the CPU's "
+        "and to intra_line_highlight")
 
 
 if __name__ == "__main__":

@@ -119,11 +119,10 @@ def test_cli_cuda_without_gpu_fails(cli_env):
 
 def test_cli_refuses_jax_where_a_view_reaches_it(cli_env):
     """The diff view of a large diff reaches the word-diff op
-    (`ops/diffword.py`), which runs on JAX in the reference and which the
-    port does not have yet. In the port's process the import fails (the
-    module is missing, and JAX is refused even where it is installed), the
-    app's own handler then renders the view without the diff, and JAX
-    never runs."""
+    (`ops/diffword.py`), which runs on JAX in the reference. The port's
+    own op (torch, on the CLI's device) serves it, JAX is refused in the
+    process even where it is installed, and the view renders: the child
+    exits 0 only if no module of JAX was loaded (mode "check")."""
     out = str(cli_env[0] / "diff.png")
     res = _cli(cli_env, out, "--device", "cpu", "--screenshot-state",
                "diff", mode="check", repo=_big_diff_repo(cli_env[0]))

@@ -51,7 +51,11 @@ def test_port_has_a_full_set_of_modules():
     for name in ("app/ui_app.py", "ui/layout.py", "engine/refresh.py",
                  "gitcore/repo.py", "services/config.py", "ops/lanes.py",
                  "render/scene.py", "render/shaping.py", "render/frame.py",
-                 "render/blocks_kernel.py", "host/main.py"):
+                 "render/blocks_kernel.py", "host/main.py", "host/loop.py",
+                 "host/term_display.py", "host/term_input.py",
+                 "host/sixel.py", "host/gctune.py", "host/degraded.py",
+                 "ledger.py", "bench.py", "ops/diffword.py",
+                 "tools/ptydrive.py"):
         assert name in rel, name
 
 

@@ -16,9 +16,13 @@ written for PyTorch and CUDA:
                            version (packed path)
   render/blocks_kernel.py  K2, the blocks rasterizer: CUDA kernel + plain
                            version (frame cache)
-  render/renderer.py       Renderer facade, PNG writer
+  render/renderer.py       Renderer facade, PNG writer, kernel builds
   ops/image.py             Lanczos resize of image tiles (numpy)
-  host/                    headless screenshot CLI
+  ops/diffword.py          batched word-diff ranges (torch)
+  host/                    the interactive terminal loop and its
+                           presenter, the headless screenshot CLI
+  ledger.py                the cache ledger the loop dumps
+  bench.py                 the history-view frame bench
   csrc/                    CUDA C++ sources, built at first CUDA launch
 
 It imports torch and numpy, and never jax, PIL, matplotlib or

@@ -1,1 +1,2 @@
-"""Host side of the port: the headless screenshot CLI."""
+"""Host side of the port: the interactive terminal loop, its presenter,
+and the headless screenshot CLI."""

@@ -1,5 +1,7 @@
-"""CLI entry point of the port: the headless screenshot.
+"""CLI entry point of the port: the interactive terminal app and the
+headless screenshot.
 
+    python -m whisper_git_tpu_torch [paths…] [--repo P] [--device cuda|cpu]
     python -m whisper_git_tpu_torch --screenshot OUT.png [--size WxH]
         [--scale S] [--repo P] [--screenshot-state STATE]
         [--device cuda|cpu]
@@ -7,8 +9,11 @@
 The options and the screenshot states are the port's own copy of the
 reference CLI's (`whisper_git_tpu/host/main.py` `parse_args`,
 `apply_screenshot_state`), plus `--device` (default cuda; asking for cuda
-without a GPU is an error). Avatars are off: decoding them needs Pillow.
-The interactive frame loop and `--dump-bundles` are not ported.
+without a GPU is an error, raised before anything else runs). Without
+`--screenshot` it runs the interactive frame loop (`host/loop.py`) on the
+terminal, as the reference does; on cuda the three kernels start building
+at once, beside the repositories' first refresh. Avatars are off: decoding
+them needs Pillow. `--dump-bundles` is not ported.
 
 The CLI refuses every import of JAX and of the reference package in its
 process (`refuse_jax`, `refuse_reference`): the port stands on its own
@@ -28,6 +33,7 @@ from ..app.ui_app import WhisperApp
 from ..app.views import dialogs
 from ..gitcore.types import WorktreeInfo
 from ..render.renderer import resolve_device
+from ..services import crash_log
 from ..services.config import Config
 
 SCREENSHOT_STATES = [
@@ -43,8 +49,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     `--device`."""
     p = argparse.ArgumentParser(
         prog="whisper_git_tpu_torch",
-        description="Git client (whisper-git rebuild), PyTorch / CUDA port: "
-                    "headless screenshots")
+        description="Git client (whisper-git rebuild), PyTorch / CUDA port")
     p.add_argument("paths", nargs="*", help="repositories to open as tabs")
     p.add_argument("--screenshot", metavar="OUT.png",
                    help="render one frame headlessly and exit")
@@ -239,25 +244,50 @@ def main(argv: list[str] | None = None) -> int:
     refuse_jax()
     refuse_reference()
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if not args.screenshot:
-        print("whisper_git_tpu_torch: only --screenshot is ported; the "
-              "interactive loop and --dump-bundles run in whisper_git_tpu",
-              file=sys.stderr)
-        return 2
-    resolve_device(args.device)  # no GPU for --device cuda: fail first
+    device = resolve_device(args.device)  # no GPU for cuda: fail first
+    from ..ops import diffword
+
+    diffword.set_device(device)
+    if device.type == "cuda":
+        from ..render.renderer import start_kernel_builds
+
+        start_kernel_builds()
     paths = list(args.paths)
     if args.repo:
         paths = [args.repo] + paths
-    app = open_app(paths)
-    if args.screenshot_state:
-        apply_screenshot_state(app, args.screenshot_state)
-    w, h = (int(v) for v in args.size.lower().split("x"))
-    from . import screenshot_mode
+    if args.screenshot:
+        app = open_app(paths)
+        if args.screenshot_state:
+            apply_screenshot_state(app, args.screenshot_state)
+        w, h = (int(v) for v in args.size.lower().split("x"))
+        from . import screenshot_mode
 
-    screenshot_mode.run(args.screenshot, w, h, args.scale, app,
-                        device=args.device)
-    print(f"wrote {args.screenshot}")
-    return 0
+        screenshot_mode.run(args.screenshot, w, h, args.scale, app,
+                            device=device)
+        print(f"wrote {args.screenshot}")
+        return 0
+    if args.dump_bundles:
+        print("whisper_git_tpu_torch: --dump-bundles is not ported; it runs "
+              "in whisper_git_tpu", file=sys.stderr)
+        return 2
+
+    # Windowed mode: no display stack here — run the interactive
+    # terminal frame loop instead (reference: main.py:236-247).
+    # BEFORE init() — init would unlink the clean-exit marker the check
+    # compares against (reference: crash_log.rs:288 surfaces this).
+    crashed = crash_log.has_crash_since_last_exit()
+    crash_log.init()
+    crash_log.install_panic_hook()
+    from .loop import run_loop
+
+    app = WhisperApp.from_paths(paths)
+    app.avatar_cache.enabled = False
+    if crashed:
+        app.toast("error",
+                  f"Previous session crashed — report saved: {crashed}")
+    code = run_loop(app, device=device)
+    crash_log.mark_clean_exit()
+    return code
 
 
 if __name__ == "__main__":

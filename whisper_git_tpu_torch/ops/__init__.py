@@ -3,8 +3,8 @@
   bezier   — cubic-bezier eval/split/root-find, batched (numpy)
   lanes    — commit-graph lane assignment + row geometry (numpy)
   image    — Lanczos3 resize as separable matrix products (numpy)
+  diffword — batched word-level diff highlight ranges (torch)
 
-The reference's other ops (`sdf`, `diffword`) run on JAX and are not
-ported yet; a view that reaches one fails with an
-ImportError of this package.
+The reference's `sdf` (the EDT) runs on JAX and is not ported yet; a view
+that reaches it fails with an ImportError of this package.
 """

@@ -10,6 +10,7 @@ bank yet: a codepoint outside the resident atlas renders '?'.
 from __future__ import annotations
 
 import struct
+import threading
 import zlib
 
 import numpy as np
@@ -76,6 +77,41 @@ def get_renderer(device="cuda") -> Renderer:
     if key not in _RENDERERS:
         _RENDERERS[key] = Renderer(key)
     return _RENDERERS[key]
+
+
+def kernel_libraries() -> dict:
+    """The build state of each kernel's library (K1, K2, K3): loaded
+    handle, path, whether this process compiled it, and nvcc's seconds
+    (`raster_kernel.new_library_state`)."""
+    from . import blocks_kernel, compose_kernel, raster_kernel
+
+    return {"K1": raster_kernel._LIB, "K2": blocks_kernel._LIB,
+            "K3": compose_kernel._LIB}
+
+
+def _build_quietly(build) -> None:
+    try:
+        build()
+    except Exception:   # built again, and raised, at the first launch
+        pass
+
+
+def start_kernel_builds() -> list:
+    """Start building K1, K2 and K3 from `csrc/` (one nvcc each, side by
+    side, on daemon threads), so that the builds overlap what runs before
+    the first frame. → the threads. A kernel's first launch waits on its
+    library's lock for the build to end; a build that failed here is
+    built again there, and raises there."""
+    from . import blocks_kernel, compose_kernel, raster_kernel
+
+    threads = []
+    for name, mod in (("K1", raster_kernel), ("K2", blocks_kernel),
+                      ("K3", compose_kernel)):
+        t = threading.Thread(target=_build_quietly, args=(mod.build,),
+                             daemon=True, name=f"wgit-build-{name}")
+        t.start()
+        threads.append(t)
+    return threads
 
 
 def png_bytes(img: np.ndarray) -> bytes:
