@@ -59,7 +59,9 @@ each fatal on failure:
               bound, and the frame end to end
   6. cli      `python -m whisper_git_tpu_torch --screenshot` writes a
               1280x800 PNG (through compose) and a 5120x2880 one (through
-              the oversized path)
+              the oversized path); `--dump-bundles DIR` writes the .svg,
+              .tree.txt and .lint.txt of every scene `tools/dump_bundles.py`
+              builds, the names read from its code
   7. timings  each kernel and its plain version at the history view (CUDA
               events around the wrapper, median, taken in turns, and the
               kernel alone from the profiler) beside its bound, and K1
@@ -95,6 +97,39 @@ each fatal on failure:
               fails on a missing field or a non-positive rate
   11. diffword  the word diff's ranges on the card equal to the CPU's and
               to the scalar `intra_line_highlight` on seeded pairs
+  12. edt     the exact EDT (`ops/sdf.py`) through `encode_sdf_cells` on the
+              card: 16 seeded coverages and the cells of the stored DejaVu
+              masks (`data/bank_masks.npz`) byte-equal to the CPU's u8 cells
+              (the f32 distances torch.equal); a padded bank batch (16
+              cells) timed on the card (host clock and CUDA events) and on
+              the CPU
+  13. goldens the nine golden scenes (`tools/goldens.py`, 360x240) through
+              `render_scene_device` under the default level, each within
+              the reference's TOLERANCE (2 u8) of its PNG (read with the
+              port's decoder); `fallback` with the bank pinned to the
+              stored masks (`tools/mask_font.py`: rasterize, the EDT on the
+              card, texture rows, re-upload), also through the frame cache
+              and the packed path (equal bit for bit, compose within 1 u8);
+              K1 and K2 against their plain versions on its bank glyphs;
+              each frame's launches those of its level; the font texture
+              grown by the bank's rows once and uploaded again once for
+              each bank version
+  14. avatars the history view of a repository by 8 authors at 1280x800
+              with the avatar cache under XDG_CACHE_HOME primed (six 64x64
+              PNGs, one 96x96, one corrupt) and WGIT_SKIP_AVATARS unset:
+              7 LOADED, 1 FAILED; packed ≡ frame cache bit for bit, compose
+              within 1 u8, K2 rendering a slab of image quads on the plan
+              build, each kernel against its plain version on the frame,
+              the image atlas uploaded once for each atlas version; a
+              steady composed frame with avatars and without, host clock
+              and device time
+
+The process refuses every connection to another host (`refuse_network`):
+with avatars on, a fetch fails as it would with no network. It refuses
+every import of JAX, the JAX package, Pillow, fontTools and matplotlib
+(`refuse_imports`; it logs which of the last three are installed), so it
+runs as on a machine without them: the fallback bank loads no chain font
+and the avatar decode has no Pillow to fall back on.
 
 Tolerances: K1 and K2 0 u8 from their plain versions (an f32 layer in
 units of 1/255) where only shapes are drawn (elementwise f32 on both
@@ -143,6 +178,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 VIEWPORT = (1280, 800)
 SCROLL_OFFSETS = (0.0, 13.0, 17.0, 63.9, 64.0, 100.3, 111.5, 128.5)
@@ -422,8 +458,12 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0].strip()
     kind = torch.cuda.get_device_name(0)
+    installed = refuse_imports()
     log(f"device: {kind} | torch {torch.__version__} | CUDA "
-        f"{torch.version.cuda} | python {sys.version.split()[0]}")
+        f"{torch.version.cuda} | python {sys.version.split()[0]} | "
+        f"installed here, refused in this process: "
+        f"{', '.join(installed) or 'none'} of "
+        f"{', '.join(OPTIONAL_LIBRARIES)}")
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -435,14 +475,14 @@ def main() -> int:
     for var in ("JAX_PLATFORMS", "WGIT_DEVICE", "WGIT_FRAME_CACHE",
                 "WGIT_FRAME_COMPOSE"):
         os.environ.pop(var, None)
+    refuse_network()
     try:
         kernels = run_phases(torch, card, kind, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     for mod in sorted(sys.modules):
-        if mod.partition(".")[0] in ("jax", "jaxlib", "PIL", "matplotlib",
-                                     "whisper_git_tpu"):
+        if mod.partition(".")[0] in REFUSED:
             fail(f"{mod} was imported")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -496,19 +536,19 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     def background(scene):
         return tuple(float(c) for c in scene.background[:3])
 
-    def k1_inputs(scene, atlas):
+    def k1_inputs(scene, atlas, font_tex=None):
         fused, meta, ty, tx, win_list = pack_scene(scene)
         wins = tuple(torch.from_numpy(b).to(dev) for _, _, b in win_list)
         layer_data, sig = unpack_layers(torch.from_numpy(fused).to(dev),
                                         wins, meta, ty * tx)
-        return (layer_data, font, atlas, background(scene), ty, tx, sig,
-                scene.height, scene.width)
+        return (layer_data, font if font_tex is None else font_tex, atlas,
+                background(scene), ty, tx, sig, scene.height, scene.width)
 
-    def k2_inputs(scene, atlas, bg="scene"):
+    def k2_inputs(scene, atlas, bg="scene", font_tex=None):
         blob, chrome_args, win_args, meta = F.pack_frame(scene, dev)
         blocks = F.build_blocks(torch.from_numpy(blob).to(dev), chrome_args,
                                 win_args, meta)
-        return (blocks, font, atlas,
+        return (blocks, font if font_tex is None else font_tex, atlas,
                 background(scene) if bg == "scene" else bg, meta[0],
                 meta[1], scene.height, scene.width)
 
@@ -911,12 +951,13 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     log("slice: offset 63.9 under the default: compose declined, the frame "
         "is torch.equal to the frame cache's, no K3 launch")
 
-    def k3_inputs(scene):
+    def k3_inputs(scene, atlas=None):
         """→ (starts, images, slabs, dyns), keywords, blob bytes, the
         plan's descriptor rows."""
-        args, st = C.prepare_compose_dispatch(scene, font, image_atlas)
+        atlas = image_atlas if atlas is None else atlas
+        args, st = C.prepare_compose_dispatch(scene, font, atlas)
         starts, dyns, kops = C.frame_tails(
-            args[0], font, image_atlas, st["height"], st["width"],
+            args[0], font, atlas, st["height"], st["width"],
             st["tiles_y"], st["tiles_x"], st["meta"])
         kw = dict(ops=kops, tiles_y=st["tiles_y"], tiles_x=st["tiles_x"],
                   background=st["background"], height=st["height"],
@@ -1057,6 +1098,37 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
             fail(f"CLI wrote no {cw}x{ch} PNG")
         log(f"cli: {cw}x{ch} PNG, {os.path.getsize(png)} bytes, "
             f"{time.perf_counter() - t0:.2f} s")
+    # --dump-bundles: the file names the reference's dump_all writes, read
+    # from the code: every CLI screenshot state and every extra scene the
+    # dump builds, each as .svg, .tree.txt and .lint.txt.
+    import ast
+
+    from whisper_git_tpu_torch.host.main import SCREENSHOT_STATES
+
+    src = os.path.join(ROOT, "whisper_git_tpu_torch", "tools",
+                       "dump_bundles.py")
+    with open(src, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = list(SCREENSHOT_STATES) + [
+        n.slice.value for n in ast.walk(tree)
+        if isinstance(n, ast.Subscript) and isinstance(n.value, ast.Name)
+        and n.value.id == "scenes" and isinstance(n.slice, ast.Constant)]
+    want = sorted(f"{n}{ext}" for n in dict.fromkeys(names)
+                  for ext in (".svg", ".tree.txt", ".lint.txt"))
+    out_dir = os.path.join(work, "bundles")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "whisper_git_tpu_torch", "--dump-bundles",
+         out_dir, "--device", "cuda"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    got = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    if res.returncode != 0 or got != want \
+            or f"wrote {len(want) // 3} scenes" not in res.stdout:
+        fail(f"CLI --dump-bundles exited {res.returncode}, wrote "
+             f"{len(got)} files for {len(want)} expected: "
+             f"{sorted(set(want) ^ set(got))[:6]} {res.stderr[-2000:]}")
+    log(f"cli: --dump-bundles wrote the {len(want)} files of "
+        f"{len(want) // 3} scenes, {time.perf_counter() - t0:.2f} s")
 
     # ---- 7. timings --------------------------------------------------------
     scene0 = cached["scenes"][0.0]
@@ -1458,6 +1530,14 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     # ---- 8-11. the presenter, the loop, the bench, word diff ------------
     run_host_phases(torch, card, work, repo, composed["frames"][0.0])
 
+    # ---- 12-14. the EDT, the goldens, avatars -------------------------------
+    asset_launches = run_asset_phases(torch, card, work, renderer, SimpleNamespace(
+        k1_inputs=k1_inputs, k2_inputs=k2_inputs, k3_inputs=k3_inputs,
+        both=both, compare=compare, compare_k3=compare_k3, k3_both=k3_both,
+        take_path=take_path, counts=counts))
+    for name, n in asset_launches.items():
+        slice_launches[name] += n
+
     def row(name, stem, replaces, bound):
         return {"name": stem, "route": "cuda",
                 "source": f"whisper_git_tpu_torch/csrc/{stem}.cu",
@@ -1478,31 +1558,6 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     return kernels
 
 
-def read_png(path: str):
-    """(H, W, 4) u8 of a PNG the port wrote (`renderer.png_bytes`: 8-bit
-    RGBA, no filtering); the machine with the card has no Pillow."""
-    import zlib
-
-    import numpy as np
-
-    with open(path, "rb") as f:
-        data = f.read()
-    pos, idat, size = 8, b"", None
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if tag == b"IHDR":
-            size = struct.unpack(">II", body[:8])
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    w, h = size
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w * 4 + 1)
-    if raw[:, 0].any():
-        fail(f"{path}: a filtered PNG row")
-    return raw[:, 1:].reshape(h, w, 4)
-
-
 def run_host_phases(torch, card: str, work: str, repo: str, frame) -> None:
     """Phases 8-11: the presenter, the interactive loop, the bench and the
     word diff on the card. `frame` is a composed history frame."""
@@ -1521,7 +1576,7 @@ def run_host_phases(torch, card: str, work: str, repo: str, frame) -> None:
     from whisper_git_tpu_torch.render import compose_kernel as CK
     from whisper_git_tpu_torch.render import raster_kernel as K
     from whisper_git_tpu_torch.render.rasterizer import render_scene_device
-    from whisper_git_tpu_torch.render.renderer import get_renderer
+    from whisper_git_tpu_torch.render.renderer import decode_png, get_renderer
     from whisper_git_tpu_torch.tools import ptydrive as PD
 
     dev = torch.device("cuda")
@@ -1700,7 +1755,11 @@ def run_host_phases(torch, card: str, work: str, repo: str, frame) -> None:
         compile_frame(app, renderer, int(app.config.window_width),
                       int(app.config.window_height)),
         renderer.font_tex_device(), renderer.image_atlas_device())
-    got = torch.from_numpy(read_png(dump).copy()).to(dev)
+    with open(dump, "rb") as f:
+        shown = decode_png(f.read())
+    if shown is None:
+        fail("loop: the frame dump is no PNG the port's decoder reads")
+    got = torch.from_numpy(shown).to(dev)
     if not torch.equal(got, want):
         mx, _ = diff_stats(got, want)
         fail(f"loop: the frame dump is {mx} u8 from render_scene_device of "
@@ -1760,6 +1819,448 @@ def run_host_phases(torch, card: str, work: str, repo: str, frame) -> None:
              "scalar highlight's")
     log(f"diffword: {len(olds)} seeded pairs on the card equal to the CPU's "
         "and to intra_line_highlight")
+
+
+OPTIONAL_LIBRARIES = ("PIL", "fontTools", "matplotlib")
+REFUSED = ("jax", "jaxlib", "whisper_git_tpu") + OPTIONAL_LIBRARIES
+
+
+class _Refuse:
+    """A meta path finder under which every import of REFUSED raises."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.partition(".")[0] in REFUSED:
+            raise ImportError(f"chip_smoke refuses {name}")
+        return None
+
+
+def refuse_imports() -> list:
+    """Refuse JAX, the JAX package, Pillow, fontTools and matplotlib in
+    this process, so that it runs as on a machine without them whatever
+    this one has installed (the bank finds no chain font and the avatar
+    decode no Pillow). → those of Pillow, fontTools and matplotlib that
+    are installed here."""
+    import importlib.util
+
+    installed = [m for m in OPTIONAL_LIBRARIES
+                 if importlib.util.find_spec(m) is not None]
+    sys.meta_path.insert(0, _Refuse())
+    return installed
+
+
+def refuse_network() -> None:
+    """Make every connection from this process to another host raise, as
+    it would on a machine without a network: the smoke needs none, and the
+    avatar of a corrupt cache file must fail its fetch here."""
+    import socket
+
+    local = ("localhost", "127.0.0.1", "::1")
+    real_getaddrinfo = socket.getaddrinfo
+    real_connect, real_connect_ex = socket.socket.connect, \
+        socket.socket.connect_ex
+
+    def getaddrinfo(host, *a, **k):
+        if host is not None and host not in local:
+            raise socket.gaierror(socket.EAI_NONAME,
+                                  f"chip_smoke: no network ({host})")
+        return real_getaddrinfo(host, *a, **k)
+
+    def check(sock, address):
+        if sock.family in (socket.AF_INET, socket.AF_INET6) \
+                and address[0] not in local:
+            raise OSError(f"chip_smoke: no network ({address[0]})")
+
+    def connect(sock, address):
+        check(sock, address)
+        return real_connect(sock, address)
+
+    def connect_ex(sock, address):
+        check(sock, address)
+        return real_connect_ex(sock, address)
+
+    socket.getaddrinfo = getaddrinfo
+    socket.socket.connect = connect
+    socket.socket.connect_ex = connect_ex
+
+
+def run_asset_phases(torch, card: str, work: str, renderer, h) -> dict:
+    """Phases 12-14: the EDT on the card, the nine golden scenes (the
+    `fallback` one through the fallback bank on the stored DejaVu masks),
+    and the history view with avatars from a primed disk cache. `h` holds
+    run_phases' helpers. → each kernel's launches on those paths."""
+    import numpy as np
+
+    from whisper_git_tpu_torch.host.main import open_app
+    from whisper_git_tpu_torch.host.screenshot_mode import compile_frame
+    from whisper_git_tpu_torch.ops import sdf as SDF
+    from whisper_git_tpu_torch.ops.sdf import (sdf_to_u8,
+                                               signed_distance_field_batch)
+    from whisper_git_tpu_torch.render import blocks_kernel as B
+    from whisper_git_tpu_torch.render import compose as C
+    from whisper_git_tpu_torch.render import compose_kernel as CK
+    from whisper_git_tpu_torch.render import frame as F
+    from whisper_git_tpu_torch.render import raster_kernel as K
+    from whisper_git_tpu_torch.render.atlas import (OVERSAMPLE, SPREAD,
+                                                    encode_sdf_cells,
+                                                    rasterize_glyph_cell)
+    from whisper_git_tpu_torch.render.fallback import _ENSURE_BATCH
+    from whisper_git_tpu_torch.render.rasterizer import render_scene_device
+    from whisper_git_tpu_torch.render.renderer import decode_png
+    from whisper_git_tpu_torch.services.avatar import AvatarState
+    from whisper_git_tpu_torch.tools import avatar_fixture as AF
+    from whisper_git_tpu_torch.tools import goldens as G
+    from whisper_git_tpu_torch.tools.mask_font import (load_mask_fonts,
+                                                       pin_mask_bank)
+    from whisper_git_tpu_torch.ui.theme import DARK
+
+    dev = renderer.device
+    launched = {"K1": 0, "K2": 0, "K3": 0}
+
+    def zero():
+        K.render_tiles.launches = 0
+        B.render_tiles_blocks.launches = 0
+        CK.compose_tiles.launches = 0
+
+    def drive(scene, font, atlas, path):
+        """One frame of `scene` through `path`, the counts zeroed just
+        before and read just after. → (frame, (K1, K2, K3) launches)."""
+        h.take_path(path)
+        zero()
+        img = render_scene_device(scene, font, atlas)
+        torch.cuda.synchronize()
+        n = h.counts()
+        h.take_path("compose")
+        for name, k in zip(("K1", "K2", "K3"), n):
+            launched[name] += k
+        want = {"packed": lambda k: k[0] == 1 and k[1] == k[2] == 0,
+                "cache": lambda k: k[1] == 1 and k[0] == k[2] == 0,
+                "compose": lambda k: k[2] == 1 and k[0] == 0}[path]
+        if not want(n) or tuple(img.shape) != (scene.height, scene.width,
+                                               4) \
+                or img.dtype != torch.uint8 or img.device.type != dev.type:
+            fail(f"{path}: (K1, K2, K3) launches {n}, frame "
+                 f"{tuple(img.shape)} {img.dtype} on {img.device}")
+        return img, n
+
+    def record_uploads(method: str, version) -> list:
+        """Wrap `renderer.<method>` (a device copy it uploads again when
+        `version()` moves) to log (tensor, version) at each new upload."""
+        uploads = []
+        real = getattr(renderer, method)
+
+        def recording():
+            t = real()
+            if not uploads or uploads[-1][0] is not t:
+                uploads.append((t, version()))
+            return t
+
+        setattr(renderer, method, recording)
+        return uploads
+
+    def max_diff(a, b) -> tuple:
+        d = (a.int() - b.int()).abs()
+        return int(d.max().item()), int(d.gt(2).sum().item())
+
+    # ---- 12. edt --------------------------------------------------------------
+    rng = np.random.default_rng(0)
+    os_cell = 128
+    yy, xx = np.mgrid[0:os_cell, 0:os_cell]
+    seeded = []
+    for i in range(16):
+        cov = np.zeros((os_cell, os_cell), np.float32)
+        for _ in range(1 + i % 4):      # discs and boxes of seeded size
+            cy, cx = rng.uniform(10, 118, 2)
+            r = rng.uniform(3, 30)
+            cov = np.maximum(cov, np.clip(r - np.hypot(yy - cy, xx - cx),
+                                          0.0, 1.0))
+            y0, x0 = rng.integers(0, 100, 2)
+            cov[y0:y0 + rng.integers(2, 28), x0:x0 + rng.integers(2, 28)] = 1
+        if i % 5 == 4:
+            cov = (rng.random((os_cell, os_cell)) < 0.05).astype(np.float32)
+        seeded.append(cov)
+    fonts = load_mask_fonts()
+    pad = int(SPREAD * OVERSAMPLE)
+    base_row = pad + int(round(renderer.regular.ascent * OVERSAMPLE))
+    masks = [rasterize_glyph_cell(f.pil, chr(cp),
+                                  lambda y0, f=f: base_row + (y0 - f.ascent))[0]
+             for f in fonts.values() for cp in sorted(f.cmap)]
+    cov_all = np.stack(seeded + masks)
+    got = encode_sdf_cells(cov_all, dev)
+    want = encode_sdf_cells(cov_all, "cpu")
+    sdf_dev = signed_distance_field_batch(torch.from_numpy(cov_all).to(dev),
+                                          SPREAD * OVERSAMPLE)
+    sdf_cpu = signed_distance_field_batch(torch.from_numpy(cov_all),
+                                          SPREAD * OVERSAMPLE)
+    if got.shape != want.shape or not np.array_equal(got, want) \
+            or not torch.equal(sdf_dev.cpu(), sdf_cpu):
+        fail(f"edt: the card's cells differ from the CPU's in "
+             f"{int((got != want).sum())} u8 values")
+    log(f"edt: {len(seeded)} seeded coverages and {len(masks)} DejaVu mask "
+        f"cells at {os_cell}x{os_cell} through encode_sdf_cells on the card: "
+        "the u8 cells byte-equal to the CPU's, the f32 distances "
+        "torch.equal")
+    # The bank's batch: the regular face's glyphs, padded with empty cells
+    # to _ENSURE_BATCH.
+    n_reg = len(fonts["regular"].cmap)
+    batch = np.zeros((_ENSURE_BATCH, os_cell, os_cell), np.float32)
+    batch[:n_reg] = masks[:n_reg]
+    batch_dev = torch.from_numpy(batch).to(dev)
+
+    def host_ms(fn, runs):
+        fn()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    edt_host = host_ms(lambda: encode_sdf_cells(batch, dev), 20)
+    edt_dev = event_ms(lambda: sdf_to_u8(signed_distance_field_batch(
+        batch_dev, SPREAD * OVERSAMPLE) / OVERSAMPLE, SPREAD), 20)
+    edt_cpu = host_ms(lambda: encode_sdf_cells(batch, "cpu"), 5)
+    # The design choice of ops/sdf.py: the batch as it runs (a cell's two
+    # transforms in one pass, in chunks bounded for the device), against a
+    # pass over the whole batch for each transform, in turns.
+    cov = {"card": batch_dev, "cpu": torch.from_numpy(batch)}
+
+    def as_run(x):
+        return signed_distance_field_batch(x, SPREAD * OVERSAMPLE)
+
+    def a_pass_each(x):
+        inside = x > 0.5
+        return torch.where(inside, -(SDF._edt(~inside) - 0.5),
+                           SDF._edt(inside) - 0.5).clamp(
+                               -SPREAD * OVERSAMPLE, SPREAD * OVERSAMPLE)
+
+    order = (a_pass_each, as_run, as_run, a_pass_each)
+    on_card = [event_ms(lambda f=f: f(cov["card"]), 20) for f in order]
+    on_cpu = [host_ms(lambda f=f: f(cov["cpu"]), 5) for f in order]
+    if not torch.equal(as_run(cov["cpu"]), a_pass_each(cov["cpu"])):
+        fail("edt: the two forms of the batch differ")
+    log(f"edt [{card}]: the batch's signed distances as ops/sdf.py runs "
+        f"them / a pass per transform over the batch, in turns: on the card "
+        f"{on_card[1]:.3f}, {on_card[2]:.3f} / {on_card[0]:.3f}, "
+        f"{on_card[3]:.3f} ms (CUDA events, median of 20); on the CPU "
+        f"{on_cpu[1]:.3f}, {on_cpu[2]:.3f} / {on_cpu[0]:.3f}, "
+        f"{on_cpu[3]:.3f} ms (host clock, median of 5)")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            encode_sdf_cells(batch, dev)
+    edt_events = device_events(prof)
+    edt_top = sorted(edt_events, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"edt [{card}]: where a batch's device time goes (profiler, 5 "
+        f"batches): {sum(e.count for e in edt_events) / 5:.1f} device "
+        f"events, {sum(e.self_device_time_total for e in edt_events) / 5e3:.3f}"
+        " ms a batch; top (us a batch, count): " + "; ".join(
+            f"{e.key[:50]} {e.self_device_time_total / 5:.1f} x"
+            f"{e.count // 5}" for e in edt_top))
+    log(f"edt [{card}]: a bank batch of {n_reg} glyphs padded to "
+        f"{_ENSURE_BATCH} cells at "
+        f"{os_cell}x{os_cell}: encode_sdf_cells on the card {edt_host:.3f} ms "
+        f"(host clock, upload to u8 cells on the host, median of 20), the "
+        f"EDT and the encode on the device {edt_dev:.3f} ms (CUDA events, "
+        f"median of 20); on this machine's CPU ({torch.get_num_threads()} "
+        f"threads) {edt_cpu:.3f} ms (host clock, median of 5)")
+
+    # ---- 13. goldens ----------------------------------------------------------
+    maxima = {}
+    for name in G.SCENES:
+        with open(os.path.join(G.golden_dir(), f"{name}.png"), "rb") as f:
+            golden = decode_png(f.read())
+        if golden is None:
+            fail(f"goldens: {name}.png is no PNG the port's decoder reads")
+        golden = torch.from_numpy(golden).to(dev)
+        restore = pin_mask_bank(renderer)
+        bank = renderer.fallback_bank
+        uploads = record_uploads("font_tex_device", lambda: bank.version)
+        try:
+            root = renderer.layout(G.SCENES[name](), (float(G.SIZE[0]),
+                                                      float(G.SIZE[1])))
+            scene = renderer.compile(root, G.SIZE, DARK.background)
+            atlas = renderer.image_atlas_device()
+            frames = {}
+            for path in (("compose", "cache", "packed") if name == "fallback"
+                         else ("compose",)):
+                frames[path], n = drive(scene, renderer.font_tex_device(),
+                                        atlas, path)
+                mx, over = max_diff(frames[path], golden)
+                maxima[(name, path)] = (mx, over)
+                log(f"goldens: {name} through {path}, (K1, K2, K3) launches "
+                    f"{n}: max {mx} u8 from the golden, {over} values over 2")
+                if mx > G.TOLERANCE:
+                    fail(f"goldens: {name} through {path} is {mx} u8 from "
+                         f"its golden, {over} values over {G.TOLERANCE}")
+            if name != "fallback":
+                continue
+            if not torch.equal(frames["cache"], frames["packed"]):
+                fail("goldens: fallback: the frame cache's frame differs "
+                     "from the packed path's")
+            mx, _ = max_diff(frames["compose"], frames["packed"])
+            if mx > 1:
+                fail(f"goldens: fallback: composed {mx} u8 from packed")
+            resident = renderer.font_tex.shape
+            want_rows = resident[0] + bank.texture.shape[0]
+            font = renderer.font_tex_device()
+            if not bank.used or bank.missing or len(bank.metrics) < 12 \
+                    or tuple(font.shape) != (want_rows, resident[1]):
+                fail(f"goldens: the bank holds {len(bank.metrics)} glyphs, "
+                     f"misses {len(bank.missing)}, font texture "
+                     f"{tuple(font.shape)}")
+            k, p = h.both(K.render_tiles, K.render_tiles_plain,
+                          h.k1_inputs(scene, atlas, font_tex=font))
+            h.compare("K1", "fallback golden (bank glyphs)", "glyphs", k, p,
+                      (scene.height, scene.width, 4), torch.uint8)
+            k, p = h.both(B.render_tiles_blocks, B.render_tiles_blocks_plain,
+                          h.k2_inputs(scene, atlas, font_tex=font))
+            h.compare("K2", "fallback golden (bank glyphs)", "glyphs", k, p,
+                      (scene.height, scene.width, 4), torch.uint8)
+            # One more glyph: the bank's version moves, the texture goes up
+            # once more at the same size, and not again while it stands.
+            bank.ensure([ord("∮")], bold=False)
+            again = renderer.font_tex_device()
+            if renderer.font_tex_device() is not again \
+                    or not torch.equal(again[resident[0]:].cpu(),
+                                       torch.from_numpy(bank.texture)):
+                fail("goldens: the font texture after a new bank glyph")
+            versions = {v for _, v in uploads}
+            shapes = {tuple(t.shape) for t, _ in uploads}
+            if len(uploads) != len(versions) or len(uploads) < 2 \
+                    or shapes != {(want_rows, resident[1])}:
+                fail(f"goldens: font texture uploads {len(uploads)} for bank "
+                     f"versions {sorted(versions)}, shapes {shapes}")
+            tex = np.concatenate([renderer.font_tex, bank.texture])
+            up_ms = host_ms(lambda: (torch.from_numpy(tex).to(dev),
+                                     torch.cuda.synchronize()), 20)
+            log(f"goldens [{card}]: the fallback scene's bank holds "
+                f"{len(bank.metrics)} glyphs from the stored masks; the font "
+                f"texture grew once from {resident[0]} to {want_rows} rows "
+                f"and was uploaded {len(uploads)} times for bank versions "
+                f"{sorted(versions)}; a re-upload of its {tex.nbytes} B takes "
+                f"{up_ms:.3f} ms (host clock to a synchronize, median of 20)")
+        finally:
+            del renderer.font_tex_device
+            restore()
+    worst = max(maxima.values())
+    log(f"goldens [{card}]: nine scenes at {G.SIZE[0]}x{G.SIZE[1]} within "
+        f"{worst[0]} u8 of their goldens (tolerance {G.TOLERANCE}): "
+        + ", ".join(f"{n}/{p} {mx}" for (n, p), (mx, _) in maxima.items()))
+
+    # ---- 14. avatars ----------------------------------------------------------
+    W, H = VIEWPORT
+    repo = AF.build_authors_repo(work)
+    emails = AF.author_emails()
+    kinds = AF.prime_avatar_cache(emails)
+    del os.environ["WGIT_SKIP_AVATARS"]
+    try:
+        app = open_app([repo])      # prefetches, one 3 s deadline
+    finally:
+        os.environ["WGIT_SKIP_AVATARS"] = "1"
+    states = {e: app.avatar_cache._states.get(e) for e in emails}
+    loaded = [e for e in emails if states[e] is AvatarState.LOADED]
+    if len(loaded) != 7 or states[emails[AF.KINDS.index("corrupt")]] \
+            is not AvatarState.FAILED:
+        fail(f"avatars: states {[str(s) for s in states.values()]}")
+    log(f"avatars: {len(emails)} authors, cache primed ({', '.join(kinds.values())}"
+        f"): {len(loaded)} LOADED, 1 FAILED (the corrupt file)")
+    atlas_uploads = record_uploads(
+        "image_atlas_device", lambda: renderer.compiler.atlas_version)
+    F.clear_caches()
+    C.clear_caches()
+    layer_builds = []
+    real_blocks = C.render_tiles_blocks
+
+    def recording(*a, **k):
+        out = real_blocks(*a, **k)
+        if k.get("layer_i16") and "tile_rect" not in k:
+            layer_builds.append([len(c) for c in a[0][0]].index(1))
+        return out
+
+    try:
+        v0 = renderer.compiler.atlas_version
+        scene = compile_frame(app, renderer, W, H)
+        atlas = renderer.image_atlas_device()
+        n_img = sum(int(lb.n_images) for lb in scene.layers) + sum(
+            len(w.comp.images) for w in scene.windows)
+        if renderer.compiler.atlas_version <= v0 or n_img < 7:
+            fail(f"avatars: the view drew {n_img} image quads, atlas version "
+                 f"{v0} -> {renderer.compiler.atlas_version}")
+        font = renderer.font_tex_device()
+        packed, _ = drive(scene, font, atlas, "packed")
+        cached, _ = drive(scene, font, atlas, "cache")
+        C.render_tiles_blocks = recording
+        try:
+            composed, n_build = drive(scene, font, atlas, "compose")
+        finally:
+            C.render_tiles_blocks = real_blocks
+        steady, n_steady = drive(scene, font, atlas, "compose")
+        if not torch.equal(packed, cached):
+            mx, _ = max_diff(packed, cached)
+            fail(f"avatars: the frame cache's frame is {mx} u8 from the "
+                 "packed path's")
+        mx, _ = max_diff(composed, packed)
+        if mx > 1 or not torch.equal(composed, steady):
+            fail(f"avatars: composed frame {mx} u8 from packed, or the "
+                 "steady frame differs from the plan build's")
+        if 2 not in layer_builds or n_steady[1]:
+            fail(f"avatars: the plan build's slabs hold classes "
+                 f"{layer_builds}; a steady frame launched K2 "
+                 f"{n_steady[1]} times")
+        log(f"avatars: history view {W}x{H}, {n_img} image quads: packed "
+            "torch.equal to the frame cache, composed within "
+            f"{mx} u8 of packed; the plan build launched (K1, K2, K3) "
+            f"{n_build}, K2 for slabs of classes {layer_builds} (2: images), "
+            f"a steady frame {n_steady}")
+        k, p = h.both(K.render_tiles, K.render_tiles_plain,
+                      h.k1_inputs(scene, atlas, font_tex=font))
+        h.compare("K1", "history view with avatars", "images", k, p,
+                  (H, W, 4), torch.uint8)
+        k, p = h.both(B.render_tiles_blocks, B.render_tiles_blocks_plain,
+                      h.k2_inputs(scene, atlas, font_tex=font))
+        h.compare("K2", "history view with avatars", "images", k, p,
+                  (H, W, 4), torch.uint8)
+        pos, kw, _, _ = h.k3_inputs(scene, atlas=atlas)
+        k, p = h.k3_both(pos, kw)
+        h.compare_k3(f"history view with avatars, {len(kw['ops'])} ops", k,
+                     p, (H, W, 4))
+        versions = {v for _, v in atlas_uploads}
+        if len(atlas_uploads) != len(versions):
+            fail(f"avatars: {len(atlas_uploads)} image atlas uploads for "
+                 f"atlas versions {sorted(versions)}")
+
+        # A steady composed frame with avatars against one without, in
+        # turns: host clock to a synchronize, and device time (profiler).
+        def frame():
+            img = render_scene_device(compile_frame(app, renderer, W, H),
+                                      renderer.font_tex_device(),
+                                      renderer.image_atlas_device())
+            torch.cuda.synchronize()
+            return img
+
+        timing = {True: [], False: []}
+        device = {True: [], False: []}
+        for with_avatars in (True, False, False, True):
+            app.avatar_cache.enabled = with_avatars
+            for _ in range(3):
+                frame()
+            timing[with_avatars].append(host_ms(frame, 30))
+            device[with_avatars].append(device_ms(frame)[1])
+        app.avatar_cache.enabled = True
+        log(f"avatars [{card}]: a steady composed frame of the history view "
+            f"with avatars {timing[True][0]:.3f} / {timing[True][1]:.3f} ms, "
+            f"without (identicons) {timing[False][0]:.3f} / "
+            f"{timing[False][1]:.3f} ms (host clock to a synchronize, median "
+            f"of 30, in turns); device time a frame with "
+            f"{device[True][0]:.6f} / {device[True][1]:.6f} ms, without "
+            f"{device[False][0]:.6f} / {device[False][1]:.6f} ms (profiler, "
+            f"20 frames); image atlas uploads {len(atlas_uploads)} for "
+            f"versions {sorted(versions)}")
+    finally:
+        del renderer.image_atlas_device
+    return launched
 
 
 if __name__ == "__main__":

@@ -43,7 +43,8 @@ def _bench(tmp_path, *args):
     env = {k: v for k, v in os.environ.items()
            if k not in ("JAX_PLATFORMS", "WGIT_DEVICE", "XLA_FLAGS",
                         "WGIT_FRAME_CACHE", "WGIT_FRAME_COMPOSE")}
-    env.update(PYTHONPATH=ROOT, XDG_STATE_HOME=str(tmp_path / "state"),
+    env.update(PYTHONPATH=ROOT, WGIT_SKIP_AVATARS="1",
+               XDG_STATE_HOME=str(tmp_path / "state"),
                XDG_CACHE_HOME=str(tmp_path / "cache"),
                XDG_CONFIG_HOME=str(tmp_path / "config"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")

@@ -158,3 +158,29 @@ def test_png_writer_round_trips_through_pillow(tmp_path):
             assert np.array_equal(np.asarray(im), img)
     with pytest.raises(ValueError):
         png_bytes(np.zeros((4, 4, 3), np.uint8))
+
+
+def test_cli_dump_bundles_writes_the_references_files(cli_env, monkeypatch):
+    """`--dump-bundles` through the port, with jax, PIL and matplotlib
+    blocked, writes the same SVG, tree and lint files as the reference's
+    `dump_all` on the same fixture repository, byte for byte."""
+    from whisper_git_tpu.tools.dump_bundles import dump_all, make_fixture_repo
+
+    base = cli_env[0]
+    repo = make_fixture_repo(str(base / "dump-fixture"))
+    out = base / "dump-port"
+    res = subprocess.run(
+        [sys.executable, cli_env[3], "block", "--dump-bundles", str(out),
+         "--repo", repo, "--device", "cpu"],
+        cwd=ROOT, env=cli_env[2], capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    monkeypatch.setenv("WGIT_SKIP_AVATARS", "1")
+    want_dir = base / "dump-ref"
+    count = dump_all(str(want_dir), repo_path=repo)
+    assert f"wrote {count} scenes to {out}" in res.stdout
+    want = sorted(os.listdir(want_dir))
+    assert sorted(os.listdir(out)) == want and len(want) == 3 * count
+    for name in want:
+        assert (out / name).read_bytes() == (want_dir / name).read_bytes(), \
+            name

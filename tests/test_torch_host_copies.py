@@ -1,6 +1,7 @@
 """The port's copies of the reference's device-free host modules
 (`host/sixel.py`, `host/term_input.py`, `host/gctune.py`,
-`host/degraded.py`, `tools/ptydrive.py`): the same code, and the same
+`host/degraded.py`, `tools/ptydrive.py`, `tools/dump_bundles.py`): the
+same code, and the same
 results on the same inputs — sixel bytes, parsed terminal events and the
 degraded cell raster of one app state."""
 
@@ -21,7 +22,7 @@ from whisper_git_tpu_torch.host import term_input as port_input
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["host/sixel.py", "host/term_input.py", "host/gctune.py",
-          "host/degraded.py", "tools/ptydrive.py"]
+          "host/degraded.py", "tools/ptydrive.py", "tools/dump_bundles.py"]
 
 
 def _code(path: str) -> str:

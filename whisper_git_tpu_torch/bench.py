@@ -160,7 +160,6 @@ def _run(args, torch, device, builds, t_proc, t_setup, tmp) -> int:
     tab = RepoTab.open(repo_path)
     tab.refresh_sync(include_orphans=False)
     app = WhisperApp.with_tabs([tab])
-    app.avatar_cache.enabled = False   # decoding needs Pillow
     renderer = get_renderer(device)
     card = card_name(device)
     t_setup_done = time.time()

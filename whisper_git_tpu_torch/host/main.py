@@ -12,8 +12,10 @@ reference CLI's (`whisper_git_tpu/host/main.py` `parse_args`,
 without a GPU is an error, raised before anything else runs). Without
 `--screenshot` it runs the interactive frame loop (`host/loop.py`) on the
 terminal, as the reference does; on cuda the three kernels start building
-at once, beside the repositories' first refresh. Avatars are off: decoding
-them needs Pillow. `--dump-bundles` is not ported.
+at once, beside the repositories' first refresh. The screenshot prefetches
+avatars first (one 3 s deadline a tab; `WGIT_SKIP_AVATARS` skips it), and
+`--dump-bundles OUT_DIR` writes the SVG, tree and lint dumps of every
+fixture scene (`tools/dump_bundles.py`), as the reference's CLI does.
 
 The CLI refuses every import of JAX and of the reference package in its
 process (`refuse_jax`, `refuse_reference`): the port stands on its own
@@ -60,8 +62,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     p.add_argument("--repo", default=None,
                    help="repository for screenshot states needing one")
     p.add_argument("--dump-bundles", metavar="OUT_DIR",
-                   help="write SVG+tree+lint golden dumps and exit "
-                        "(not ported)")
+                   help="write SVG+tree+lint golden dumps and exit")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="device to render on (default: cuda)")
     return p.parse_args(argv)
@@ -231,12 +232,20 @@ def refuse_reference() -> None:
 
 
 def open_app(paths: list[str]) -> WhisperApp:
-    """The app with `paths` open as tabs, refreshed synchronously, with
-    avatars off (their decoding needs Pillow; not ported)."""
+    """The app with `paths` open as tabs, refreshed synchronously, and
+    its avatars fetched (reference: the screenshot path of main.py)."""
     app = WhisperApp.from_paths(paths, config=Config())
-    app.avatar_cache.enabled = False
     for tab in app.tabs:
         tab.refresh_sync()  # sync full refresh — no event loop
+    # Blocking avatar prefetch so the frame shows real avatars
+    # (reference: prefetch_avatars_for_screenshot, main.rs:307;
+    # WGIT_SKIP_AVATARS skips it). The fetches fan out over a thread
+    # pool with ONE 3 s wall deadline per tab — a dead network costs
+    # seconds, not 20 × 3 s of serial timeouts.
+    for tab in app.tabs:
+        emails = list({c.author_email for c in tab.commits
+                       if c.author_email})[:20]
+        app.avatar_cache.prefetch_sync(emails, timeout=3.0)
     return app
 
 
@@ -248,7 +257,9 @@ def main(argv: list[str] | None = None) -> int:
     from ..ops import diffword
 
     diffword.set_device(device)
-    if device.type == "cuda":
+    # The bundle dump renders nothing: it starts no nvcc that would
+    # outlive it.
+    if device.type == "cuda" and (args.screenshot or not args.dump_bundles):
         from ..render.renderer import start_kernel_builds
 
         start_kernel_builds()
@@ -267,9 +278,12 @@ def main(argv: list[str] | None = None) -> int:
         print(f"wrote {args.screenshot}")
         return 0
     if args.dump_bundles:
-        print("whisper_git_tpu_torch: --dump-bundles is not ported; it runs "
-              "in whisper_git_tpu", file=sys.stderr)
-        return 2
+        from ..tools.dump_bundles import dump_all
+
+        count = dump_all(args.dump_bundles, repo_path=paths[0] if paths
+                         else None)
+        print(f"wrote {count} scenes to {args.dump_bundles}")
+        return 0
 
     # Windowed mode: no display stack here — run the interactive
     # terminal frame loop instead (reference: main.py:236-247).
@@ -281,7 +295,6 @@ def main(argv: list[str] | None = None) -> int:
     from .loop import run_loop
 
     app = WhisperApp.from_paths(paths)
-    app.avatar_cache.enabled = False
     if crashed:
         app.toast("error",
                   f"Previous session crashed — report saved: {crashed}")

@@ -4,7 +4,6 @@
   lanes    — commit-graph lane assignment + row geometry (numpy)
   image    — Lanczos3 resize as separable matrix products (numpy)
   diffword — batched word-level diff highlight ranges (torch)
-
-The reference's `sdf` (the EDT) runs on JAX and is not ported yet; a view
-that reaches it fails with an ImportError of this package.
+  sdf      — exact Euclidean distance transform for SDF glyph cells
+             (torch, on the input's device)
 """

@@ -1,26 +1,35 @@
-"""SDF font atlas: the atlas types and text measurement, and the atlases
-themselves loaded from the committed `data/atlas.npz`.
+"""SDF font atlas: the atlas types, text measurement, the atlas build
+pipeline, and the atlases themselves loaded from the committed
+`data/atlas.npz`.
 
 `Glyph`, `FontAtlas`, `AtlasMeasurer` and `_CHARS` are the port's own copy
-of the device-free part of `whisper_git_tpu/render/atlas.py`. The
-reference builds its atlases at start-up (`build_atlas`: Pillow rasterizes
-DejaVu from matplotlib's font folder, then a JAX exact EDT). The port has
-none of the three, so it ships the reference's output:
-`tests/tools/export_atlas.py` writes both textures and their glyph metrics
-into the npz, and `load_atlases` rebuilds the `FontAtlas` objects from
-them with numpy alone.
+of the device-free part of `whisper_git_tpu/render/atlas.py`. The build
+half is the reference's too: Pillow rasterizes a glyph at 2× oversample
+(`rasterize_glyph_cell`), the exact EDT of `ops/sdf.py` encodes a batch of
+cells on a torch device (`encode_sdf_cells`), and `glyph_cell_metrics`
+turns the glyph's box into atlas metrics. The fallback glyph bank
+(`render/fallback.py`) runs every glyph it adds through that pipeline.
+
+`build_atlas` builds the resident atlas from DejaVu (matplotlib's font
+folder) through the same pipeline, byte for byte the reference's. A
+renderer does not call it: it loads the atlases from the npz with numpy
+alone (`load_atlases`), since the machine with the card has neither Pillow
+nor matplotlib. `tests/tools/export_atlas.py` writes the npz.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from dataclasses import dataclass
 
 import numpy as np
 
 ATLAS_FONT_PX = 44          # base glyph size rendered into the atlas
+OVERSAMPLE = 2              # rasterize at 2×, EDT at high res, store at 1×
 CELL = 64                   # atlas cell size in px (must fit glyph + spread)
 SPREAD = 8.0                # SDF spread in atlas pixels
+GRID_COLS = 12
 
 _CHARS = list(dict.fromkeys(
     [chr(c) for c in range(32, 127)]              # ASCII
@@ -32,6 +41,13 @@ _CHARS = list(dict.fromkeys(
     + list("…·→✓—–•✕⚙⚠▸▾▴◂↑↓↗⟳›‹▏●○■□†‡€™")       # UI symbols
     + list("‘’“”„−±≈≠≤≥")                          # punctuation/math
 ))
+
+
+def _font_path(bold: bool) -> str:
+    import matplotlib
+    fdir = os.path.join(os.path.dirname(matplotlib.__file__),
+                        "mpl-data", "fonts", "ttf")
+    return os.path.join(fdir, "DejaVuSans-Bold.ttf" if bold else "DejaVuSans.ttf")
 
 
 @dataclass
@@ -253,6 +269,143 @@ class FontAtlas:
                 cache.clear()
             cache[key] = out
         return out
+
+
+def rasterize_glyph_cell(font, ch: str, row0_of_ink_top
+                         ) -> tuple[np.ndarray, int, int, int, float]:
+    """Rasterize ONE glyph into an oversampled coverage cell — the shared
+    front half of the SDF pipeline (used by build_atlas for the resident
+    set and by render/fallback.py for the lazy bank, so placement
+    conventions cannot drift between them).
+
+    row0_of_ink_top(bbox_y0) -> oversampled cell row where the ink's top
+    lands (the resident atlas derives it from line-top + spread margin;
+    the bank aligns baselines against the resident ascent).
+    Returns (cell (os, os) f32, mask_w, mask_h, bbox_x0, advance) at the
+    oversampled scale."""
+    mask = font.getmask(ch, mode="L")
+    mw, mh = mask.size
+    bbox = font.getbbox(ch)
+    adv = font.getlength(ch)
+    os_cell = CELL * OVERSAMPLE
+    pad = int(SPREAD * OVERSAMPLE)
+    cell = np.zeros((os_cell, os_cell), np.float32)
+    if mw > 0 and mh > 0:
+        arr = np.asarray(mask, np.float32).reshape(mh, mw) / 255.0
+        row0 = int(np.clip(row0_of_ink_top(bbox[1]), 0, os_cell - 1))
+        cw = min(mw, os_cell - 2 * pad)
+        chh = min(mh, os_cell - row0)
+        if chh > 0:
+            cell[row0:row0 + chh, pad:pad + cw] = arr[:chh, :cw]
+    return cell, mw, mh, bbox[0], adv
+
+
+def encode_sdf_cells(coverages: np.ndarray, device="cuda") -> np.ndarray:
+    """(B, os, os) coverage → (B, CELL, CELL) encoded u8 SDF cells: the
+    batched exact EDT on `device` + stride downsample (the shared back
+    half of the pipeline)."""
+    import torch
+
+    from ..ops.sdf import sdf_to_u8, signed_distance_field_batch
+
+    cov = torch.from_numpy(np.ascontiguousarray(coverages, np.float32))
+    sdf = signed_distance_field_batch(cov.to(torch.device(device)),
+                                      max_dist=SPREAD * OVERSAMPLE)
+    enc = sdf_to_u8(sdf / OVERSAMPLE, spread=SPREAD).cpu().numpy()
+    return enc[:, ::OVERSAMPLE, ::OVERSAMPLE]
+
+
+def glyph_cell_metrics(mw: int, mh: int, bx0: int, adv: float
+                       ) -> tuple[int, int, float, float, float]:
+    """(mask_w, mask_h, bbox_x0, advance) at oversampled scale →
+    (w, h, bearing_x, bearing_y, advance) at atlas scale — the ONE
+    metric encoding both the resident atlas and the bank use."""
+    pad_small = int(SPREAD)
+    return (min(mw // OVERSAMPLE + 2 * pad_small, CELL),
+            min(mh // OVERSAMPLE + 2 * pad_small, CELL),
+            bx0 / OVERSAMPLE - pad_small,
+            -float(pad_small),
+            adv / OVERSAMPLE)
+
+
+def _cache_dir() -> str:
+    d = os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache"))
+    path = os.path.join(d, "whisper-git-tpu-torch")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def build_atlas(bold: bool = False, use_cache: bool = True,
+                device="cuda") -> FontAtlas:
+    """The resident atlas of one face, built as the reference builds it
+    (Pillow, DejaVu from matplotlib, the EDT on `device`). The cache file
+    holds no pickled object: `chars` is a `<U1` array."""
+    from PIL import ImageFont
+
+    font_file = _font_path(bold)
+    key = hashlib.md5(
+        f"{font_file}:{ATLAS_FONT_PX}:{OVERSAMPLE}:{CELL}:{SPREAD}:"
+        f"{''.join(_CHARS)}:v4-baseline".encode()).hexdigest()[:16]
+    cache = os.path.join(_cache_dir(), f"atlas-{key}.npz")
+    if use_cache and os.path.exists(cache):
+        try:
+            with np.load(cache, allow_pickle=False) as z:
+                glyphs = {str(c): Glyph(*row)
+                          for c, row in zip(z["chars"], z["meta"])}
+                return FontAtlas(z["texture"], glyphs,
+                                 float(z["ascent"]), float(z["descent"]),
+                                 is_bold=bold)
+        except (OSError, ValueError, KeyError):
+            pass
+
+    font = ImageFont.truetype(font_file, ATLAS_FONT_PX * OVERSAMPLE)
+    ascent_o, descent_o = font.getmetrics()
+    pad = int(SPREAD * OVERSAMPLE)
+
+    coverages = []
+    records = []  # (char, mask_w, mask_h, bbox_x0, adv) oversampled
+    for ch in _CHARS:
+        # Baseline-aligned placement: the ink lands at its line-top
+        # offset (bbox y0) within the cell, below the spread margin,
+        # so every glyph shares the cell-wide vertical band.
+        cell, mw, mh, bx0, adv = rasterize_glyph_cell(
+            font, ch, lambda y0: pad + y0)
+        coverages.append(cell)
+        records.append((ch, mw, mh, bx0, adv))
+
+    enc_small = encode_sdf_cells(np.stack(coverages), device)
+
+    n = len(_CHARS)
+    rows = (n + GRID_COLS - 1) // GRID_COLS
+    # 0 = far outside (no ink) in the 128-is-edge encoding.
+    texture = np.zeros((rows * CELL, GRID_COLS * CELL), np.uint8)
+    glyphs: dict[str, Glyph] = {}
+    for i, (ch, mw, mh, bx0, adv) in enumerate(records):
+        r, c = divmod(i, GRID_COLS)
+        u, v = c * CELL, r * CELL
+        texture[v:v + CELL, u:u + CELL] = enc_small[i]
+        w, h, bearing_x, bearing_y, advance = glyph_cell_metrics(
+            mw, mh, bx0, adv)
+        # Baseline-aligned cells: row 0 of every cell is line-top minus
+        # the spread margin (the ink itself sits at bbox y0).
+        glyphs[ch] = Glyph(u=u, v=v, w=w, h=h, bearing_x=bearing_x,
+                           bearing_y=bearing_y, advance=advance)
+    atlas = FontAtlas(texture, glyphs,
+                      ascent=ascent_o / OVERSAMPLE,
+                      descent=descent_o / OVERSAMPLE,
+                      is_bold=bold)
+    if use_cache:
+        try:
+            np.savez_compressed(
+                cache, texture=texture,
+                chars=np.array(_CHARS, dtype="<U1"),
+                meta=np.array([(g.u, g.v, g.w, g.h, g.bearing_x, g.bearing_y,
+                                g.advance) for g in
+                               (glyphs[c] for c in _CHARS)], np.float32),
+                ascent=atlas.ascent, descent=atlas.descent)
+        except OSError:
+            pass
+    return atlas
 
 
 class AtlasMeasurer:

@@ -6,6 +6,13 @@ $XDG_CACHE_HOME/whisper-git/avatars/{hash}.png, in-memory
 InFlight/Loaded/Failed states with no retry in-session, Lanczos3 resize
 to 64×64 RGBA (ours runs on the accelerator via ops.image), and a sync
 prefetch variant for screenshots.
+
+The port's copy of `whisper_git_tpu/services/avatar.py`, with one
+departure: the cache's PNGs are read and written with zlib alone
+(`render/renderer.py`: `decode_png`, `png_bytes`); Pillow, where it is
+importable, decodes only what that decoder does not read (another image
+format, a 16-bit PNG). Without Pillow such an avatar fails and the view
+draws the identicon, as a failed decode does in the reference.
 """
 
 from __future__ import annotations
@@ -61,13 +68,17 @@ def _cache_path(email: str) -> str:
 
 
 def _decode_and_resize(data: bytes) -> Optional[np.ndarray]:
-    try:
-        from PIL import Image
+    from ..render.renderer import decode_png
 
-        img = Image.open(io.BytesIO(data)).convert("RGBA")
-        arr = np.asarray(img, np.uint8)
-    except Exception:
-        return None
+    arr = decode_png(data)
+    if arr is None:
+        try:
+            from PIL import Image
+
+            img = Image.open(io.BytesIO(data)).convert("RGBA")
+            arr = np.asarray(img, np.uint8)
+        except Exception:   # no Pillow, or no image Pillow reads
+            return None
     if arr.shape[:2] != (AVATAR_PIXELS, AVATAR_PIXELS):
         from ..ops.image import resize_lanczos
 
@@ -97,11 +108,12 @@ def download_avatar(email: str, timeout: float = 10.0
         return None
     arr = _decode_and_resize(data)
     if arr is not None:
-        try:
-            from PIL import Image
+        from ..render.renderer import png_bytes
 
-            Image.fromarray(arr, "RGBA").save(path)
-        except Exception:
+        try:
+            with open(path, "wb") as f:
+                f.write(png_bytes(arr))
+        except OSError:
             pass
     return arr
 
