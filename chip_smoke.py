@@ -123,6 +123,31 @@ each fatal on failure:
               the image atlas uploaded once for each atlas version; a
               steady composed frame with avatars and without, host clock
               and device time
+  15. mesh    the mesh paths on one card, the counterpart of the
+              reference's `dryrun_multichip`: meshes of 4 x cuda:0 (1 x 4)
+              and 8 x cuda:0 (2 x 4); three steady scroll frames of
+              `tools/fixtures.py::steady_window_tree` and of the history
+              view at 1280x800 (13 tile rows: not a multiple of 4 or 8)
+              through compose and through the frame cache, and of a
+              320 px scene with a pre-rendered volatile tail (5 rows over
+              8 shards) through compose, each pass from empty caches and
+              every frame torch.equal to the single-device frame; K3
+              launched once a shard that holds a frame row a frame, K2 once
+              a shard a layer build or frame; each kernel on every slice
+              (pad rows among them) against its plain version, and the
+              slices put together torch.equal to the whole launch;
+              `render_batch_sharded` with B = 4 on the 2 x 4 mesh against
+              one K1 launch a frame; each sliced launch timed by events
+              and alone after a flush of the L2 beside the whole one, and
+              its bound over its own entries and bytes (it fails if one
+              reads faster); the steady composed frame on one device and
+              under both
+              meshes. Over several real cards where there are; logged as not
+              run on one
+  16. tools   `tools/vector_smoke.py` on the card (both seams within 2 u8),
+              `tools/kernel_times.py compose` (K3 by op kind), and
+              `tools/soak.py --secs 15`, the CLI on a pty, which must pass
+              its gates
 
 The process refuses every connection to another host (`refuse_network`):
 with avatars on, a fetch fails as it would with no network. It refuses
@@ -198,6 +223,7 @@ TIMED_KERNEL_RUNS = 50
 TIMED_PLAIN_RUNS = 5
 OVERSIZED = (5120, 2880)   # a 5K screenshot: 40 x 45 tiles
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -250,25 +276,31 @@ TILE_PIXELS = 64 * 128
 CELL_BYTES = (0, 64 * 64, 64 * 64 * 4)  # atlas cell of a glyph, an image
 
 
-def entry_pixels(torch, K, ci, tables, bins, live, tiles_x, height, width):
-    """For the live slots of a (T, k) bins table: → (tile index (M,), pixels
-    of each entry's extent inside its tile and the frame (M,) i64)."""
+def entry_pixels(torch, K, ci, tables, bins, live, tiles_x, height, width,
+                 tile0=0):
+    """For the live slots of a (T, k) bins table whose row t is tile tile0 +
+    t: → (row index (M,), pixels of each entry's extent inside its tile and
+    the frame (M,) i64)."""
     t_idx, k_idx = torch.nonzero(live, as_tuple=True)
     ext = K.command_extents(ci, tables)[bins[t_idx, k_idx].long()]
-    return t_idx, K.extent_tile_pixels(ext, t_idx, tiles_x, height, width)
+    return t_idx, K.extent_tile_pixels(ext, t_idx + tile0, tiles_x, height,
+                                       width)
 
 
-def kernel_bound(torch, K, runs, out, tiles_x) -> tuple[float, str, dict]:
+def kernel_bound(torch, K, runs, out, tiles_x, tile0=0,
+                 frame_hw=None) -> tuple[float, str, dict]:
     """The least time the card could take for one launch. `runs` lists
     what the launch walks: (class, tables, bins, lo, hi), lo and hi None
-    where the whole row counts. → (bound ms, "bytes" | "operations",
-    {"entries": per class, "pixels": of their extents per class, "bytes":
-    moved, "old_ms": the bound at 8192 pixels an entry, "busiest_tile_ms",
+    where the whole row counts. A slice passes its own rows of bins, lo
+    and hi, whose first is tile `tile0`, and the frame's (height, width)
+    as `frame_hw`. → (bound ms, "bytes" | "operations", {"entries": per
+    class, "pixels": of their extents per class, "bytes": moved, "old_ms":
+    the bound at 8192 pixels an entry, "busiest_tile_ms",
     "busiest_share"})."""
     entries, pixels = [0, 0, 0], [0, 0, 0]
     tile_flops = None   # per tile: the arithmetic its own bins rows cost
     seen, n_bytes = set(), out.numel() * out.element_size()
-    height, width = out.shape[0], out.shape[1]
+    height, width = frame_hw or (out.shape[0], out.shape[1])
 
     def once(t):
         nonlocal n_bytes
@@ -284,7 +316,7 @@ def kernel_bound(torch, K, runs, out, tiles_x) -> tuple[float, str, dict]:
         if hi is not None:
             live &= k < hi[:, None]
         t_idx, n_px = entry_pixels(torch, K, ci, tables, bins, live, tiles_x,
-                                   height, width)
+                                   height, width, tile0)
         entries[ci] += int(t_idx.numel())
         pixels[ci] += int(n_px.sum().item())
         if tile_flops is None:
@@ -317,21 +349,31 @@ BLEND_FLOPS_F32 = 7
 
 
 def compose_bound(torch, K, starts, images, slabs, dyns, ops, out,
-                  desc_bytes: int) -> tuple[float, str, dict]:
+                  desc_bytes: int, row0: int = 0,
+                  frame_h: int | None = None) -> tuple[float, str, dict]:
     """The least time the card could take for one compose launch on these
-    inputs. → (bound ms, "bytes" | "operations", {"bytes", "layer_px":
-    pixels blended from chrome layers, slab rows inside their y clip and
-    pre-rendered tails, "entries": inline shape bin entries, "pixels": of
-    their extents, "old_ms": the bound at 8192 pixels an entry})."""
-    height, width = out.shape[0], out.shape[1]
+    inputs; of a slice from tile row `row0` (`out` its rows of a frame
+    `frame_h` tall), for the rows it blends. → (bound ms, "bytes" |
+    "operations", {"bytes", "layer_px": pixels blended from chrome
+    layers, slab rows inside their y clip and pre-rendered tails,
+    "entries": inline shape bin entries, "pixels": of their extents,
+    "old_ms": the bound at 8192 pixels an entry})."""
+    width = out.shape[1]
+    y0 = row0 * 64
+    y1 = y0 + out.shape[0]
+    height = frame_h or out.shape[0]
     n_bytes = (out.numel() + starts.numel() * starts.element_size()
                + desc_bytes)
     px_i16 = px_f32 = entries = pixels = 0
-    ys = torch.arange(height, dtype=torch.float32) + 0.5
+    ys = torch.arange(y0, y1, dtype=torch.float32) + 0.5
+
+    def rows_in(a, h):   # rows of [a, a + h) inside the slice
+        return max(0, min(a + h, y1) - max(a, y0))
+
     for op in ops:
         if op[0] == "img":
             t = images[op[1]]
-            px_i16 += t.shape[0] * t.shape[1]
+            px_i16 += rows_in(op[2] * 64, t.shape[0]) * t.shape[1]
         elif op[0] == "slab":
             slab, start = slabs[op[1]], int(starts[op[1]].item())
             sy = ys - 0.5 + start
@@ -343,20 +385,24 @@ def compose_bound(torch, K, starts, images, slabs, dyns, ops, out,
             if tables is None:
                 continue
             shapes, clips, bins, counts = tables
-            n_bytes += sum(t.numel() * t.element_size() for t in tables)
+            ts = op[4]
+            rows = slice(row0 * ts, -(-y1 // 64) * ts)
+            bins, counts = bins[rows], counts[rows]
+            n_bytes += sum(t.numel() * t.element_size()
+                           for t in (shapes, clips, bins, counts))
             k = torch.arange(bins.shape[1], device=bins.device)[None, :]
             # The tail's tables and bins live in its sub-grid of tile
             # columns [c0, c0 + ts), and so do the extents.
             t_idx, n_px = entry_pixels(
                 torch, K, 0, (shapes, clips), bins,
-                (bins >= 0) & (k < counts[:, None]), op[4], height,
-                width - op[3] * 128)
+                (bins >= 0) & (k < counts[:, None]), ts, height,
+                width - op[3] * 128, row0 * ts)
             entries += int(t_idx.numel())
             pixels += int(n_px.sum().item())
         else:
             t = dyns.get((op[1], op[2]))
             if t is not None:
-                px_f32 += t.shape[0] * t.shape[1]
+                px_f32 += rows_in(0, t.shape[0]) * t.shape[1]
     n_bytes += 8 * px_i16 + 16 * px_f32
     blend = BLEND_FLOPS_I16 * px_i16 + BLEND_FLOPS_F32 * px_f32
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -593,6 +639,7 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         if mx > (0 if kind_s in ("shapes", "empty") else 1):
             fail(f"K2 disagrees with its plain version on {label}")
 
+    log(f"phase 3 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 3. each kernel against its plain version ----------------------------
     n_modes, i16_apart = 0, []
     for kind_s in KINDS:
@@ -729,6 +776,7 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
              "path's")
     C.clear_caches()
 
+    log(f"phase 4 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 4. the slice end to end, three paths --------------------------------
     repo = build_history_repo(work)
     # The dirty dot pulses with the clock; pinned, two passes over the same
@@ -1023,6 +1071,7 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         "the frame's) as i16 straight from K2; the caches hold those very "
         "tensors")
 
+    log(f"phase 5 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 5. the oversized path -------------------------------------------
     def k1_as_blocks(args):
         """K1's layer tables and bins as K2's blocks: a block a class the
@@ -1080,6 +1129,7 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
             for t in big_args[0])
         + "); torch.equal to K2 over the same tables and bins")
 
+    log(f"phase 6 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 6. the CLI --------------------------------------------------------
     for cw, ch in (VIEWPORT, OVERSIZED):
         png = os.path.join(work, f"shot-{cw}x{ch}.png")
@@ -1130,6 +1180,7 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     log(f"cli: --dump-bundles wrote the {len(want)} files of "
         f"{len(want) // 3} scenes, {time.perf_counter() - t0:.2f} s")
 
+    log(f"phase 7 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 7. timings --------------------------------------------------------
     scene0 = cached["scenes"][0.0]
     args1 = k1_inputs(scene0, image_atlas)
@@ -1527,9 +1578,11 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     if rounding:
         fail(f"a plan build ran a quantize pass in torch ops: {rounding}")
 
+    log(f"phase 8-11 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 8-11. the presenter, the loop, the bench, word diff ------------
     run_host_phases(torch, card, work, repo, composed["frames"][0.0])
 
+    log(f"phase 12-14 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 12-14. the EDT, the goldens, avatars -------------------------------
     asset_launches = run_asset_phases(torch, card, work, renderer, SimpleNamespace(
         k1_inputs=k1_inputs, k2_inputs=k2_inputs, k3_inputs=k3_inputs,
@@ -1537,6 +1590,20 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         take_path=take_path, counts=counts))
     for name, n in asset_launches.items():
         slice_launches[name] += n
+
+    log(f"phase 15 starts at {time.perf_counter() - T_START:.1f} s")
+    # ---- 15. mesh -------------------------------------------------------------
+    mesh_launches = run_mesh_phase(torch, card, renderer, SimpleNamespace(
+        k1_inputs=k1_inputs, k2_inputs=k2_inputs, k3_inputs=k3_inputs,
+        both=both, compare=compare, compare_k3=compare_k3, k3_both=k3_both,
+        take_path=take_path, counts=counts, compile_at=compile_at))
+    for name, n in mesh_launches.items():
+        slice_launches[name] += n
+
+    log(f"phase 16 starts at {time.perf_counter() - T_START:.1f} s")
+    # ---- 16. tools ------------------------------------------------------------
+    run_tools_phase(torch, card, work, repo)
+    log(f"phase 16 done, {time.perf_counter() - T_START:.1f} s")
 
     def row(name, stem, replaces, bound):
         return {"name": stem, "route": "cuda",
@@ -1819,6 +1886,488 @@ def run_host_phases(torch, card: str, work: str, repo: str, frame) -> None:
              "scalar highlight's")
     log(f"diffword: {len(olds)} seeded pairs on the card equal to the CPU's "
         "and to intra_line_highlight")
+
+
+# The mesh phase: three steady scroll frames, and meshes of one card given
+# several times (dp, sp).
+MESH_OFFSETS = (0.0, 16.0, 32.0)
+MESH_SHAPES = ((1, 4), (2, 4))
+MESH_TIMED_OFFSETS = tuple(float(o) for o in range(0, 120, 6))   # 20 frames
+
+
+def run_mesh_phase(torch, card: str, renderer, h) -> dict:
+    """Phase 15: the mesh paths on the card (`parallel/mesh.py`, the mesh
+    branches of `render/frame.py` and `render/compose.py`), the port's
+    counterpart of the reference's `dryrun_multichip`. `h` holds
+    run_phases' helpers. → each kernel's launches on the mesh's frame
+    paths and the batched sweep."""
+    import numpy as np
+
+    from whisper_git_tpu_torch.parallel import mesh as PM
+    from whisper_git_tpu_torch.render import blocks_kernel as B
+    from whisper_git_tpu_torch.render import compose as C
+    from whisper_git_tpu_torch.render import compose_kernel as CK
+    from whisper_git_tpu_torch.render import frame as F
+    from whisper_git_tpu_torch.render import raster_kernel as K
+    from whisper_git_tpu_torch.render.meshstate import set_render_mesh
+    from whisper_git_tpu_torch.render.rasterizer import render_scene_device
+    from whisper_git_tpu_torch.tools.fixtures import steady_window_scene
+    from whisper_git_tpu_torch.ui import image, rect, row, spacer, stack
+    from whisper_git_tpu_torch.ui.theme import DARK
+
+    dev = renderer.device
+    font = renderer.font_tex_device()
+    W, H = VIEWPORT
+    launched = {"K1": 0, "K2": 0, "K3": 0}
+    meshes = {f"{dp}x{sp}": PM.make_mesh(dp * sp, dp=dp,
+                                         devices=[dev] * (dp * sp))
+              for dp, sp in MESH_SHAPES}
+
+    def zero():
+        K.render_tiles.launches = 0
+        B.render_tiles_blocks.launches = 0
+        CK.compose_tiles.launches = 0
+
+    def slices(tiles_y, mesh):
+        """(row0, rows) of each shard of `mesh` over `tiles_y` rows."""
+        _, ty_pad = F._sharded_tile_rows(tiles_y, 1, mesh)
+        rows = ty_pad // mesh.size
+        return [(s * rows, rows) for s in range(mesh.size)]
+
+    def holding(tiles_y, mesh, rect=None):
+        """Shards whose slice holds a row of the frame (of `rect`)."""
+        lo, hi = (0, tiles_y) if rect is None else (rect[0], rect[2])
+        return sum(1 for r0, n in slices(tiles_y, mesh)
+                   if max(r0, lo) < min(r0 + n, hi, tiles_y))
+
+    # K2's launches a layer build or frame under a mesh: one a shard that
+    # holds a row of the output; every sharded K2 call is noted.
+    want_k2 = []
+    real_sharded = F._render_tiles_blocks_sharded
+
+    def noting(*a, **k):
+        mesh = a[8] if len(a) > 8 else k["mesh"]
+        want_k2.append(holding(a[4], mesh, k.get("tile_rect")))
+        return real_sharded(*a, **k)
+
+    tile = np.zeros((16, 16, 4), np.uint8)
+    tile[:, :, 0] = 220
+    tile[:, :, 3] = 255
+
+    def volatile_scene(_off):
+        # 320 px: 5 tile rows, padded to 8 over 8 shards (3 pad rows); a
+        # volatile image, so compose pre-renders a "dyn" tail for K3.
+        ui = stack(rect(width="fill", height="fill", fill=DARK.background),
+                   row(spacer(300),
+                       image(tile, width=16, height=16, volatile=True),
+                       width="fill", height=60),
+                   width="fill", height="fill")
+        root = renderer.layout(ui, (512, 320))
+        return renderer.compile(root, (512, 320), DARK.background)
+
+    scene_sets = (
+        (f"steady window {W}x{H}", lambda off: steady_window_scene(
+            renderer, off, (W, H)), ("compose", "cache")),
+        (f"history view {W}x{H}", h.compile_at, ("compose", "cache")),
+        ("volatile image 512x320", volatile_scene, ("compose",)),
+    )
+    F._render_tiles_blocks_sharded = noting
+    try:
+        for label, make, levels in scene_sets:
+            scenes = [make(off) for off in MESH_OFFSETS]
+            ty = -(-scenes[0].height // 64)
+            for level in levels:
+                h.take_path(level)
+                set_render_mesh(None)
+                F.clear_caches()
+                C.clear_caches()
+                atlas = renderer.image_atlas_device()
+                singles = [render_scene_device(sc, font, atlas)
+                           for sc in scenes]
+                for name, mesh in meshes.items():
+                    # The caches hold rendered layers keyed without the
+                    # mesh: a mesh pass after a single-device one would
+                    # reuse its layers and certify nothing.
+                    F.clear_caches()
+                    C.clear_caches()
+                    del want_k2[:]
+                    set_render_mesh(mesh)
+                    zero()
+                    try:
+                        got = [render_scene_device(sc, font, atlas)
+                               for sc in scenes]
+                        torch.cuda.synchronize()
+                    finally:
+                        set_render_mesh(None)
+                    n = h.counts()
+                    for kname, k in zip(("K1", "K2", "K3"), n):
+                        launched[kname] += k
+                    for off, a, b in zip(MESH_OFFSETS, singles, got):
+                        if not torch.equal(a, b):
+                            mx, _ = diff_stats(a, b)
+                            fail(f"mesh {name}: {label} {level} at offset "
+                                 f"{off:g} is {mx:g} u8 from the "
+                                 "single-device frame")
+                    rows_k3 = holding(ty, mesh) * len(scenes)
+                    want = (0, sum(want_k2), rows_k3 if level == "compose"
+                            else 0)
+                    if level == "cache" and sum(want_k2) != \
+                            holding(ty, mesh) * len(scenes):
+                        fail(f"mesh {name}: {label}: the frame cache made "
+                             f"{len(want_k2)} sharded K2 calls")
+                    if n != want:
+                        fail(f"mesh {name}: {label} {level}: (K1, K2, K3) "
+                             f"launches {n}, expected {want}")
+                    log(f"mesh {name} ({mesh.size} x {mesh.flat[0]}): "
+                        f"{label}, "
+                        f"{level}, {len(scenes)} frames torch.equal to one "
+                        f"device's; {ty} tile rows, {holding(ty, mesh)} "
+                        f"shards hold one; launches (K1, K2, K3) {n}: K2 "
+                        f"on {len(want_k2)} sharded calls, a shard each "
+                        "that holds a row of the output")
+    finally:
+        F._render_tiles_blocks_sharded = real_sharded
+        set_render_mesh(None)
+        h.take_path("compose")
+
+    # Each sliced kernel against its plain version on the same slice, and
+    # the slices put together against the whole launch.
+    hist = h.compile_at(0.0)
+    atlas = renderer.image_atlas_device()
+    ty, tx = -(-H // 64), -(-W // 128)
+    mesh8 = meshes["2x4"]
+    args2 = h.k2_inputs(hist, atlas)
+    whole2 = B.render_tiles_blocks(*args2)
+    parts = []
+    for r0, n in slices(ty, mesh8):
+        k, p = h.both(
+            lambda *a, r0=r0, n=n: B.render_tiles_blocks(
+                *a, n_tiles=n * tx, tile0=r0 * tx),
+            lambda *a, r0=r0, n=n: B.render_tiles_blocks_plain(
+                *a, n_tiles=n * tx, tile0=r0 * tx), args2)
+        rows = max(0, min((r0 + n) * 64, H) - r0 * 64)
+        h.compare("K2", f"history view rows [{r0}, {r0 + n}) of {ty}",
+                  "glyphs", k, p, (rows, W, 4), torch.uint8)
+        parts.append(k)
+    if not torch.equal(torch.cat(parts), whole2):
+        fail("K2's slices put together are not the whole frame")
+    layer_args = h.k2_inputs(hist, atlas, bg=None)
+    for kw in ({}, {"layer_i16": True},
+               {"layer_i16": True, "tile_rect": (3, 2, ty, tx)}):
+        whole = B.render_tiles_blocks(*layer_args, **kw)
+        got = torch.cat([B.render_tiles_blocks(
+            *layer_args, n_tiles=n * tx, tile0=r0 * tx, **kw)
+            for r0, n in slices(ty, mesh8)])
+        p = B.render_tiles_blocks_plain(*layer_args, n_tiles=2 * tx,
+                                        tile0=4 * tx, **kw)
+        k = B.render_tiles_blocks(*layer_args, n_tiles=2 * tx, tile0=4 * tx,
+                                  **kw)
+        if not torch.equal(got, whole):
+            fail(f"K2 {kw}: the slices put together are not the whole")
+        if kw.get("layer_i16"):
+            d = int((k.int() - p.int()).abs().max().item())
+            if d > 1:
+                fail(f"K2 {kw} on a slice: {d} counts from the plain version")
+        else:
+            h.compare("K2", "history view f32 layer rows [4, 6)", "glyphs",
+                      k, p, (128, W, 4), torch.float32)
+    log(f"mesh: K2 on every slice of the {mesh8.size}-shard mesh over {ty} "
+        "tile rows (pad rows among them) against its plain version, and "
+        "the slices put together torch.equal to the whole, in the u8, f32, "
+        "i16 and tile-rect modes")
+
+    for label, scene in (("history view", hist),
+                         ("volatile image", volatile_scene(0.0))):
+        C.clear_caches()
+        pos, kw, _, rows3 = h.k3_inputs(scene, renderer.image_atlas_device())
+        if label == "volatile image" and "dyn" not in {op[0] for op in
+                                                      kw["ops"]}:
+            fail(f"the volatile image composes {kw['ops']}: no dyn tail")
+        whole = CK.compose_tiles(*pos, **kw, rows=rows3)
+        for mesh in meshes.values():
+            parts = []
+            for r0, n in slices(kw["tiles_y"], mesh):
+                k, p = h.k3_both(pos, dict(kw, n_rows=n, row0=r0))
+                rows = max(0, min((r0 + n) * 64, kw["height"]) - r0 * 64)
+                h.compare_k3(f"{label} rows [{r0}, {r0 + n}) of "
+                             f"{kw['tiles_y']}", k, p, (rows, kw["width"], 4))
+                parts.append(k)
+            if not torch.equal(torch.cat(parts), whole):
+                fail(f"K3 {label}: the slices put together are not the "
+                     "whole frame")
+    log("mesh: K3 on every slice of both meshes (pad rows; the volatile "
+        "image's pre-rendered dyn tail) against its plain version, the "
+        "slices put together torch.equal to the whole")
+
+    # K1 on slices of tiles, as the batched sweep runs it.
+    args1 = h.k1_inputs(hist, atlas)
+    T = ty * tx
+    sp = mesh8.shape["sp"]
+    T_pad = -(-T // sp) * sp
+    padded = tuple(tuple(t if i < 7 else torch.cat(
+        [t, torch.full((T_pad - T, t.shape[1]), -1, dtype=t.dtype,
+                       device=t.device)]) for i, t in enumerate(layer))
+        for layer in args1[0])
+    local = T_pad // sp
+    tiles = []
+    for j in range(sp):
+        k, p = h.both(
+            lambda *a, j=j: K.render_tiles(*a, n_tiles=local,
+                                           tile0=j * local),
+            lambda *a, j=j: K.render_tiles_plain(*a, n_tiles=local,
+                                                 tile0=j * local),
+            (padded,) + tuple(args1[1:]))
+        h.compare("K1", f"history view tiles [{j * local}, "
+                  f"{(j + 1) * local}) of {T} (+{T_pad - T} pad)", "glyphs",
+                  k, p, (local, 64, 128, 4), torch.float32)
+        tiles.append(k)
+    whole1 = K.render_tiles(*args1)
+
+    def assemble(t):
+        img = t[:T].reshape(ty, tx, 64, 128, 4).permute(0, 2, 1, 3, 4)
+        return K.quantize_u8(img.reshape(ty * 64, tx * 128, 4)[:H, :W])
+
+    if not torch.equal(assemble(torch.cat(tiles)), whole1):
+        fail("K1's slices, quantized, are not the whole frame")
+
+    # The batched dp x sp sweep: 4 frames over the 2 x 4 mesh.
+    frames = [h.k1_inputs(h.compile_at(off), atlas)
+              for off in (0.0, 16.0, 32.0, 48.0)]
+    n_layers = max(len(f[6]) for f in frames)
+    sig = tuple(tuple(any(f[6][li][c] for f in frames if li < len(f[6]))
+                      for c in range(3)) for li in range(n_layers))
+
+    def stacked(li, i):
+        ts = [f[0][li][i] if li < len(f[0]) else None for f in frames]
+        if i >= 7:
+            k = max([t.shape[1] for t in ts if t is not None] + [1])
+            out = torch.full((len(ts), T_pad, k), -1, dtype=torch.int32,
+                             device=dev)
+            for b, t in enumerate(ts):
+                if t is not None:
+                    out[b, :T, :t.shape[1]] = t
+            return out
+        cols = (16, 4, 8, 4, 4, 8, 4)[i]
+        n = max([t.shape[0] for t in ts if t is not None] + [1])
+        out = torch.zeros((len(ts), n, cols), device=dev)
+        for b, t in enumerate(ts):
+            if t is not None:
+                out[b, :t.shape[0]] = t
+        return out
+
+    batched = tuple(tuple(stacked(li, i) for i in range(10))
+                    for li in range(n_layers))
+    zero()
+    batch = PM.render_batch_sharded(batched, font, atlas, args1[3], ty, tx,
+                                    sig, mesh8)
+    torch.cuda.synchronize()
+    n = h.counts()
+    launched["K1"] += n[0]
+    if n != (len(frames) * sp, 0, 0) or tuple(batch.shape) != (
+            len(frames), T_pad, 64, 128, 4):
+        fail(f"render_batch_sharded: launches {n}, {tuple(batch.shape)}")
+    for b, f in enumerate(frames):
+        if not torch.equal(assemble(batch[b]), K.render_tiles(*f)):
+            fail(f"render_batch_sharded: frame {b} is not K1's frame")
+    log(f"mesh: render_batch_sharded, B = {len(frames)} history frames on "
+        f"the 2 x 4 mesh ({n[0]} K1 launches, a frame a shard of its dp "
+        "group): each frame torch.equal to one K1 launch without a slice; "
+        "K1 on 4 tile slices against its plain version")
+
+    # Each sliced launch timed by events beside the whole launch, and the
+    # slice's bound over its own entries and bytes.
+    mesh4 = meshes["1x4"]
+    (r0, n4), = slices(ty, mesh4)[:1]
+    rows = slice(r0 * tx, (r0 + n4) * tx)
+
+    def runs2(layers_blocks, rows):
+        return [(ci, tables, bins[rows], None if lo is None else lo[rows],
+                 hi[rows]) for cls_lists in layers_blocks
+                for ci in B.Z_ORDER
+                for tables, bins, lo, hi in cls_lists[ci]]
+
+    def runs1(layer_data, sig_, rows):
+        return [(ci, tuple(layer[j] for j in F._CLS_TABLES[ci]),
+                 layer[7 + ci][rows], None, None)
+                for layer, s in zip(layer_data, sig_)
+                for ci in B.Z_ORDER if s[ci]]
+
+    C.clear_caches()
+    pos, kw, _, rows3 = h.k3_inputs(hist, atlas)
+    sl2 = B.render_tiles_blocks(*args2, n_tiles=n4 * tx, tile0=r0 * tx)
+    sl3 = CK.compose_tiles(*pos, **kw, rows=rows3, n_rows=n4, row0=r0)
+    sl1 = K.render_tiles(padded, *args1[1:], n_tiles=local, tile0=0)
+    desc = CK.op_descriptors(pos[1], pos[2], pos[3], kw["ops"],
+                             kw["tiles_y"], pos[0].device, rows3)[0]
+    cases = (
+        ("K1", lambda: K.render_tiles(*args1),
+         kernel_bound(torch, K, runs1(args1[0], args1[6], slice(0, T)),
+                      whole1, tx)),
+        (f"K1 tiles [0, {local})",
+         lambda: K.render_tiles(padded, *args1[1:], n_tiles=local, tile0=0),
+         kernel_bound(torch, K, runs1(padded, args1[6], slice(0, local)),
+                      sl1, tx, 0, (H, W))),
+        ("K2", lambda: B.render_tiles_blocks(*args2),
+         kernel_bound(torch, K, runs2(args2[0], slice(0, T)), whole2, tx)),
+        (f"K2 rows [{r0}, {r0 + n4})",
+         lambda: B.render_tiles_blocks(*args2, n_tiles=n4 * tx,
+                                       tile0=r0 * tx),
+         kernel_bound(torch, K, runs2(args2[0], rows), sl2, tx, rows.start,
+                      (H, W))),
+        ("K3", lambda: CK.compose_tiles(*pos, **kw, rows=rows3),
+         compose_bound(torch, K, *pos, kw["ops"],
+                       CK.compose_tiles(*pos, **kw, rows=rows3),
+                       desc.nbytes)),
+        (f"K3 rows [{r0}, {r0 + n4})",
+         lambda: CK.compose_tiles(*pos, **kw, rows=rows3, n_rows=n4,
+                                  row0=r0),
+         compose_bound(torch, K, *pos, kw["ops"], sl3, desc.nbytes, r0, H)))
+    # The kernel alone from a cold L2, as the bound's bytes come from device
+    # memory: 38 MB of K3's layers fit in the 50 MB L2, and back-to-back
+    # launches would read them from there.
+    flush = torch.empty(192 << 20, dtype=torch.uint8, device=dev)
+    for name, fn, bound in cases:
+        ev, alone = [], []
+        for _ in range(2):
+            ev.append(event_ms(fn, TIMED_KERNEL_RUNS))
+            alone.append(device_ms(fn, flush=flush)[0])
+        log(f"mesh timing [{card}]: {name}: {ev[0]:.4f} / {ev[1]:.4f} ms by "
+            f"CUDA events around the wrapper (median of "
+            f"{TIMED_KERNEL_RUNS}), {alone[0]:.4f} / {alone[1]:.4f} ms the "
+            f"kernel alone after a flush of the L2 (profiler); bound "
+            f"{bound[0]:.6f} ms by {bound[1]} "
+            f"({bound[2]['bytes']} B"
+            + (f", bin entries {bound[2]['entries']}" if "K3" not in name
+               else f", {bound[2]['layer_px']} layer pixels")
+            + ")")
+        if min(ev + alone) < bound[0]:
+            fail(f"{name} reads faster than its bound")
+
+    # The frame under a 4-shard mesh of this card against one device, in
+    # this call: compose, the history view, host clock to a synchronize.
+    def frame_ms(mesh):
+        set_render_mesh(mesh)
+        try:
+            F.clear_caches()
+            C.clear_caches()
+            scenes = [h.compile_at(off) for off in MESH_TIMED_OFFSETS]
+            for sc in scenes:                       # warm: plans and layers
+                render_scene_device(sc, font, atlas)
+            torch.cuda.synchronize()
+            out = []
+            for sc in scenes:
+                t0 = time.perf_counter()
+                render_scene_device(sc, font, atlas)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(out)
+        finally:
+            set_render_mesh(None)
+
+    turns = [(name, m) for name, m in (("one device", None),
+                                       ("1x4", meshes["1x4"]),
+                                       ("2x4", meshes["2x4"]))]
+    fms = {name: [] for name, _ in turns}
+    for _ in range(2):
+        for name, m in turns:
+            fms[name].append(frame_ms(m))
+    log(f"mesh timing [{card}]: the history view's steady composed frame "
+        f"(render_scene_device to a synchronize, median of "
+        f"{len(MESH_TIMED_OFFSETS)} warm frames, two turns): "
+        + "; ".join(f"{name} {v[0]:.3f} / {v[1]:.3f} ms"
+                    for name, v in fms.items())
+        + " (on one card a mesh launches K3 once a shard for the same "
+        "pixels)")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        real = PM.make_mesh(n_cards)
+        h.take_path("compose")
+        scenes = [steady_window_scene(renderer, off, (W, H))
+                  for off in MESH_OFFSETS]
+        F.clear_caches()
+        C.clear_caches()
+        singles = [render_scene_device(sc, font, atlas) for sc in scenes]
+        F.clear_caches()
+        C.clear_caches()
+        set_render_mesh(real)
+        try:
+            got = [render_scene_device(sc, font, atlas) for sc in scenes]
+        finally:
+            set_render_mesh(None)
+        if not all(torch.equal(a, b.to(a.device))
+                   for a, b in zip(singles, got)):
+            fail(f"the mesh over {n_cards} cards changed a frame")
+        log(f"mesh: over {n_cards} real cards ({real}): the steady frames "
+            "torch.equal to one card's")
+    else:
+        log(f"mesh: {n_cards} card visible: the mesh over several real "
+            "cards did not run (not a failure)")
+    return launched
+
+
+def run_tools_phase(torch, card: str, work: str, repo: str) -> None:
+    """Phase 16: the port's tools on the card: the vector smoke, the
+    compose probe (`tools/kernel_times.py compose` on the history
+    repository `repo`) and a 15 s soak of the CLI on a pty."""
+    from whisper_git_tpu_torch.tools import vector_smoke
+
+    t0 = time.perf_counter()
+    res = vector_smoke.run(os.path.join(work, "vector_smoke.png"), "cuda")
+    if res["max_diff_per_row_vs_single"] > 2 \
+            or res["max_diff_overlap_vs_single"] > 2:
+        fail(f"vector smoke: seams {res}")
+    log(f"tools: vector_smoke on the card: per row vs single "
+        f"{res['max_diff_per_row_vs_single']} u8, overlap vs single "
+        f"{res['max_diff_overlap_vs_single']} u8 (gate 2), "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    probe = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "whisper_git_tpu_torch", "tools",
+                                      "kernel_times.py"), "compose",
+         "--repo", repo],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        fail(f"kernel_times.py compose exited {probe.returncode}: "
+             f"{probe.stderr[-3000:]}")
+    variants = [json.loads(line) for line in probe.stdout.splitlines()
+                if line.startswith("{")]
+    if [v["variant"] for v in variants] != ["none", "imgs", "slabs", "dyn",
+                                            "all"]:
+        fail(f"kernel_times.py compose printed {probe.stdout[-2000:]}")
+    log(f"tools: compose probe [{card}] (kernel_times.py compose, "
+        f"{time.perf_counter() - t0:.1f} s): K3 by op kind, events / alone "
+        "ms: " + "; ".join(f"{v['variant']} ({len(v['ops'])} ops) "
+                           f"{v['events_ms']:.4f} / {v['alone_ms']:.4f}"
+                           for v in variants))
+
+    t0 = time.perf_counter()
+    out = os.path.join(work, "soak")
+    soak = subprocess.run(
+        [sys.executable, "-m", "whisper_git_tpu_torch.tools.soak", "--secs",
+         "15", "--out", out], cwd=ROOT, capture_output=True, text=True,
+        timeout=400)
+    try:
+        with open(os.path.join(out, "soak.json")) as f:
+            result = json.load(f)
+    except (OSError, ValueError):
+        result = {}
+    if soak.returncode != 0 or not result.get("ok"):
+        fail(f"soak exited {soak.returncode}: {result.get('notes')} "
+             f"{soak.stdout[-1500:]} {soak.stderr[-1500:]} "
+             f"{result.get('stderr_tail', '')[-1500:]}")
+    if sorted(os.listdir(out)) != ["soak.json"]:
+        fail(f"the soak left {os.listdir(out)} under --out")
+    log(f"tools: soak [{card}] 15 s on the card's pty "
+        f"({time.perf_counter() - t0:.1f} s in all): first frame "
+        f"{result['first_frame_s']} s, {result['interactions']} "
+        f"interactions, repaint p50 {result['repaint_p50_ms']} ms, p95 "
+        f"{result['repaint_p95_ms']} ms, device frames "
+        f"{result['device_frames']}, degraded {result['degraded_frames']}, "
+        f"RSS {result['rss_mb_series']} MB, host thread max gap "
+        f"{result['host_thread_max_gap_s']} s, frame loop max gap "
+        f"{result['app_loop_max_gap_s']} s; notes {result['notes']}")
 
 
 OPTIONAL_LIBRARIES = ("PIL", "fontTools", "matplotlib")

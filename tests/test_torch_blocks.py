@@ -209,12 +209,17 @@ def test_wrapper_refuses_mesh_slices_and_other_devices(port_renderer):
     r = port_renderer
     scene, blocks, ty, tx = _small_blocks(r)
     atlas = torch.from_numpy(scene.image_atlas)
-    with pytest.raises(NotImplementedError, match="n_tiles"):
+    # A mesh slice takes both of n_tiles and tile0, in whole tile rows.
+    with pytest.raises(ValueError, match="go together"):
         B.render_tiles_blocks(blocks, r.font_tex_device(), atlas, None, ty,
                               tx, scene.height, scene.width, n_tiles=1)
-    with pytest.raises(NotImplementedError, match="tile0"):
+    with pytest.raises(ValueError, match="go together"):
         B.render_tiles_blocks(blocks, r.font_tex_device(), atlas, None, ty,
                               tx, scene.height, scene.width, tile0=1)
+    with pytest.raises(ValueError, match="whole rows"):
+        B.render_tiles_blocks(blocks, r.font_tex_device(), atlas, None, ty,
+                              tx, scene.height, scene.width, n_tiles=1,
+                              tile0=0)
     with pytest.raises(ValueError, match="unsupported device"):
         B.render_tiles_blocks(blocks, r.font_tex_device().to("meta"), atlas,
                               None, ty, tx, scene.height, scene.width)

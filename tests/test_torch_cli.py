@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_slice import fresh_compile_caches
 from whisper_git_tpu_torch.render import raster_kernel as K
 from whisper_git_tpu_torch.render.renderer import (Renderer, get_renderer,
                                                    png_bytes, save_png)
@@ -177,6 +178,10 @@ def test_cli_dump_bundles_writes_the_references_files(cli_env, monkeypatch):
     assert res.returncode == 0, res.stderr[-3000:]
     monkeypatch.setenv("WGIT_SKIP_AVATARS", "1")
     want_dir = base / "dump-ref"
+    # The port's dump ran in a fresh process; the reference's runs in this
+    # one, whose layout memos (keyed by content alone) an earlier test may
+    # have filled under the atlas measurer: start it from empty memos too.
+    fresh_compile_caches()
     count = dump_all(str(want_dir), repo_path=repo)
     assert f"wrote {count} scenes to {out}" in res.stdout
     want = sorted(os.listdir(want_dir))

@@ -215,8 +215,12 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_wrapper_rejects_a_mesh_slice_and_other_devices():
     a = compose_args_to(synthetic_compose("empty", 0), "cpu")
     pos = [a.pop(k) for k in ("starts", "images", "slabs", "dyns")]
-    with pytest.raises(NotImplementedError, match="n_rows / row0"):
-        CK.compose_tiles(*pos, **a, n_rows=2, row0=0)
+    # A mesh slice takes both of n_rows and row0, and rows to blend.
+    with pytest.raises(ValueError, match="go together"):
+        CK.compose_tiles(*pos, **a, n_rows=2)
+    with pytest.raises(ValueError, match="no slice"):
+        CK.compose_tiles(*pos, **a, n_rows=0, row0=0)
+    assert CK.compose_tiles(*pos, **a, n_rows=2, row0=0).shape[0] == 128
     pos[0] = torch.empty((0,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         CK.compose_tiles(*pos, **a)

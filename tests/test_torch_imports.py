@@ -63,7 +63,10 @@ def test_port_has_a_full_set_of_modules():
                  "ledger.py", "bench.py", "ops/diffword.py",
                  "tools/ptydrive.py", "ops/sdf.py", "render/fallback.py",
                  "tools/goldens.py", "tools/dump_bundles.py",
-                 "tools/mask_font.py"):
+                 "tools/mask_font.py", "render/meshstate.py",
+                 "parallel/mesh.py", "tools/fixtures.py",
+                 "tools/vector_smoke.py", "tools/scale_repo.py",
+                 "tools/soak.py", "tools/compose_probe.py"):
         assert name in rel, name
 
 

@@ -412,7 +412,7 @@ def test_params_struct_layout_and_packing():
     fields, size = _c_struct("RasterParams", {"LayerTables": layer})
     assert layer[1] == K._LAYER_PACK.size == 96
     assert size == K.MAX_LAYERS * K._LAYER_PACK.size + K._TAIL_PACK.size \
-        == 456
+        == 464
 
     rng = np.random.default_rng(0)
     T, device = 6, torch.device("cpu")
@@ -426,6 +426,12 @@ def test_params_struct_layout_and_packing():
             for li, s in enumerate(sig)]
     got = K._pack_params(rows, font, atlas, bg, 2, 3, 100, 200, out)
     assert len(got) == size
+    # A slice's canvas: the first tile launched and the f32 output.
+    tiles = torch.empty((4, 64, 128, 4))
+    sliced = K._pack_params(rows, font, atlas, bg, 2, 3, 100, 200, tiles, 2)
+    offsets = {f: o for f, o, _ in fields}
+    assert struct.unpack_from("<QiI", sliced, offsets["out"]) == (
+        tiles.data_ptr(), 2, 1)
 
     want = {"font_tex": font.data_ptr(), "font_h": 64, "font_w": 128,
             "image_atlas": atlas.data_ptr(), "atlas_h": 64, "atlas_w": 64,

@@ -49,6 +49,11 @@
 //    the parameter space by every thread alike (no allocation, no upload,
 //    no wait); a longer list is a flat array in device memory, as before;
 //    reads are bounded by each layer's pixel extent;
+//  * a slice of a device mesh launches the tile rows [row0, row0 + n) of
+//    the frame and writes them from the top of its output; every
+//    coordinate stays the frame's (a layer's rect, a slab's start, a
+//    tail's rows), and the rows a mesh pads the grid with are never
+//    launched;
 //  * the inline tail is `shape_step` of raster_steps.cuh, the same code as
 //    in the two rasterizers, once for each of the thread's two columns, on
 //    column centres shifted to the sub-grid, with the command's extent in
@@ -97,7 +102,9 @@ struct ComposeParams {
   const int* starts;      // (n_starts,) first slab row of the frame
   float bg_r, bg_g, bg_b;
   int tiles_x, tiles_y, height, width;
-  unsigned char* out;     // (height, width, 4) u8
+  int row0;               // the first tile row launched
+  unsigned char* out;     // the u8 frame's rows from row0 * TILE_H on, as
+                          // many as were launched: (rows, width, 4)
   ComposeOp inline_ops[MAX_INLINE_OPS];
 };
 
@@ -217,7 +224,7 @@ __global__ void __launch_bounds__(COMPOSE_THREADS,
   constexpr int STRIPS = TILE_H / STRIP_H;
   const int t = blockIdx.x / STRIPS, q = blockIdx.x % STRIPS;
   Place at;
-  at.ti = t / p.tiles_x;
+  at.ti = p.row0 + t / p.tiles_x;
   at.tj = t % p.tiles_x;
   at.col = 2 * (threadIdx.x % PAIRS);
   at.row0 = threadIdx.x / PAIRS;
@@ -328,6 +335,7 @@ __global__ void __launch_bounds__(COMPOSE_THREADS,
   if (x >= p.width) return;
   const bool has1 = x + 1 < p.width, vec = (p.width & 1) == 0;
   uchar4* o4 = reinterpret_cast<uchar4*>(p.out);
+  const int y_out0 = p.row0 * TILE_H;   // the output's first row
 #pragma unroll
   for (int i = 0; i < N_ROWS; ++i) {
     const int y = oy + row0 + i * 2;
@@ -336,7 +344,7 @@ __global__ void __launch_bounds__(COMPOSE_THREADS,
                                    quantize_u8(f0.b[i]), 255);
       const uchar4 c = make_uchar4(quantize_u8(f1.r[i]), quantize_u8(f1.g[i]),
                                    quantize_u8(f1.b[i]), 255);
-      uchar4* at = o4 + (size_t)y * p.width + x;
+      uchar4* at = o4 + (size_t)(y - y_out0) * p.width + x;
       if (vec) {
         uint2 v;
         v.x = (unsigned)a.x | (unsigned)a.y << 8 | (unsigned)a.z << 16
@@ -356,10 +364,11 @@ __global__ void __launch_bounds__(COMPOSE_THREADS,
 
 extern "C" {
 
-// Launch 64 / (2 * rows) CTAs a tile on `stream`, on the calling thread's
-// current device; `rows` (2, 4 or 8) is the rows a thread owns. Returns
-// cudaGetLastError(): a launch the runtime refused never runs, and a
-// synchronize would not say.
+// Launch 64 / (2 * rows) CTAs a tile for `n_tiles` tiles from the first of
+// tile row `row0` on `stream`, on the calling thread's current device;
+// `rows` (2, 4 or 8) is the rows a thread owns. Returns cudaGetLastError():
+// a launch the runtime refused never runs, and a synchronize would not
+// say.
 int compose_tiles_launch(const raster::ComposeParams* params, int n_tiles,
                          int rows, void* stream) {
   using namespace raster;

@@ -43,7 +43,12 @@
 //    because TPU gathers are slow); the bf16 rounding of the tap weights
 //    is reproduced so the result matches the reference;
 //  * the kernel writes the interleaved (H, W, 4) u8 frame itself, with
-//    clip(x * 255 + 0.5) and the ragged edge cropped.
+//    clip(x * 255 + 0.5) and the ragged edge cropped;
+//  * a slice of a device mesh (`render_batch_sharded`) launches tiles
+//    [tile0, tile0 + n) only, with pixel origins and bins rows from the
+//    global tile id, and writes their f32 canvas before the quantize as
+//    whole (64, 128, 4) tiles, as the reference's `_render_tile_slice`
+//    returns it.
 #include <cuda_runtime.h>
 
 #include "raster_steps.cuh"
@@ -79,7 +84,10 @@ struct RasterParams {
   int atlas_h, atlas_w;
   float bg_r, bg_g, bg_b;
   int n_layers, tiles_x, tiles_y, height, width;
-  unsigned char* out;                // (height, width, 4)
+  void* out;                         // (height, width, 4) u8, or with
+                                     // out_f32 (n, TILE_H, TILE_W, 4) f32
+  int tile0;                         // global id of the first tile launched
+  int out_f32;
 };
 
 // A pass of the walk: slots [s, s + STAGE_PASS) of the bins row of class
@@ -104,7 +112,8 @@ __global__ void __launch_bounds__(STRIP_W * ROW_STRIDE,
   __shared__ int s_count[2][STAGE_PASS / 32];
 
   const int tid = threadIdx.x;
-  const int t = blockIdx.x / (SPLIT_X * SPLIT_Y);
+  const int lt = blockIdx.x / (SPLIT_X * SPLIT_Y);   // tile of the launch
+  const int t = p.tile0 + lt;                        // tile of the grid
   const int unit = blockIdx.x % (SPLIT_X * SPLIT_Y);
   const int strip = unit % SPLIT_X, band = unit / SPLIT_X;
   const int col = strip * STRIP_W + tid % STRIP_W;
@@ -184,18 +193,24 @@ __global__ void __launch_bounds__(STRIP_W * ROW_STRIDE,
     idx = idx_nxt;
   }
 
-  store_u8(f, ox + col, oy, p.out, p.height, p.width);
+  if (p.out_f32) {
+    store_f32(f, col, band * UNIT_H,
+              (float*)p.out + (size_t)lt * (TILE_H * TILE_W * 4), TILE_H,
+              TILE_W);
+  } else {
+    store_u8(f, ox + col, oy, (unsigned char*)p.out, p.height, p.width);
+  }
 }
 
 }  // namespace raster
 
 extern "C" {
 
-// Launch every tile of `params` on `stream`, on the calling thread's current
-// device: a CTA a unit of `strip_w` columns by 4 * `rows` rows of a tile,
-// (128 / strip_w) * (16 / rows) CTAs a tile; the pairs compiled are listed
-// below. Returns cudaGetLastError(): a launch the runtime refused never
-// runs, and a synchronize would not say.
+// Launch `n_tiles` tiles of `params` from its `tile0` on `stream`, on the
+// calling thread's current device: a CTA a unit of `strip_w` columns by
+// 4 * `rows` rows of a tile, (128 / strip_w) * (16 / rows) CTAs a tile; the
+// pairs compiled are listed below. Returns cudaGetLastError(): a launch the
+// runtime refused never runs, and a synchronize would not say.
 int raster_tiles_launch(const raster::RasterParams* params, int n_tiles,
                         int strip_w, int rows, void* stream) {
   using namespace raster;

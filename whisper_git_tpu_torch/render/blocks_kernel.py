@@ -27,6 +27,14 @@ result is the (H, W, 4) premultiplied RGBA layer, f32 or, with
 `layer_i16`, the i16 fixed point at 1/32767 that the compose kernel reads
 (`quantize_i16` of the f32 layer, value for value). `tile_rect` = (ty0, tx0,
 ty1, tx1) renders only those tiles and returns the output cut to them.
+`n_tiles` / `tile0`, a device mesh's slice of whole tile rows, does the same
+for the rows [tile0 / tiles_x, (tile0 + n_tiles) / tiles_x) (within a
+`tile_rect`, for those of its rows): the rows past the frame's tiles, which
+a mesh adds to split the grid evenly, are left out, not rendered, so the
+output holds the slice's rows of the frame (none for a slice of pad rows
+alone, which launches nothing), and the slices of a mesh put together along
+the rows give the whole output. Bins and bounds keep the whole grid's rows
+whatever the slice: a mesh replicates them.
 
 `render_tiles_blocks` is the entry point. A tensor on the CPU takes
 `render_tiles_blocks_plain`; a CUDA tensor launches the kernel in
@@ -98,20 +106,59 @@ def _check_modes(background, layer_i16: bool) -> None:
                          "background=None")
 
 
+def slice_rect(n_tiles, tile0, tile_rect: tuple | None, tiles_y: int,
+               tiles_x: int, height: int, width: int) -> tuple:
+    """The tile rect a call renders: `tile_rect` (the whole grid for
+    None) cut to the rows of the slice `n_tiles` / `tile0` and to the
+    frame's tiles. → (rect or None where that leaves no row, (out_h, out_w)
+    of the output)."""
+    if (n_tiles is None) != (tile0 is None):
+        raise ValueError(f"{_WHO}: n_tiles and tile0 go together")
+    rect = (0, 0, tiles_y, tiles_x) if tile_rect is None \
+        else tuple(int(v) for v in tile_rect)
+    if n_tiles is not None:
+        n_tiles, tile0 = int(n_tiles), int(tile0)
+        if n_tiles <= 0 or tile0 < 0 or n_tiles % tiles_x \
+                or tile0 % tiles_x:
+            raise ValueError(f"{_WHO}: a slice of {n_tiles} tiles from tile "
+                             f"{tile0} is not one of whole rows of "
+                             f"{tiles_x} tiles")
+        r0, r1 = tile0 // tiles_x, (tile0 + n_tiles) // tiles_x
+        ty0, ty1 = max(rect[0], r0), min(rect[2], r1, tiles_y)
+        out_w = rect_extent(rect, tiles_y, tiles_x, height, width)[5]
+        if ty1 <= ty0:
+            return None, (0, out_w)
+        rect = (ty0, rect[1], ty1, rect[3])
+    return rect, rect_extent(rect, tiles_y, tiles_x, height, width)[4:]
+
+
+def _empty(background, layer_i16: bool, out_w: int, device):
+    dtype = torch.uint8 if background is not None else \
+        torch.int16 if layer_i16 else torch.float32
+    return torch.empty((0, out_w, 4), dtype=dtype, device=device)
+
+
 def render_tiles_blocks_plain(layers_blocks, font_tex, image_atlas,
                               background: tuple | None, tiles_y: int,
-                              tiles_x: int, height: int, width: int, *,
+                              tiles_x: int, height: int, width: int,
+                              n_tiles: int | None = None, tile0=None, *,
                               layer_i16: bool = False,
                               tile_rect: tuple | None = None
                               ) -> torch.Tensor:
     """The plain version of `render_tiles_blocks`: batched over tiles,
     looping k over each block's bin width with slots outside [lo, hi)
-    masked, on the per-command functions of `render_tiles_plain`; the whole
-    frame is rendered, then cut to `tile_rect` and quantized."""
+    masked, on the per-command functions of `render_tiles_plain`; the rows
+    of the rect (`slice_rect`) are rendered, then cut to it and
+    quantized."""
     _check_modes(background, layer_i16)
-    ty0, tx0, _, _, out_h, out_w = rect_extent(tile_rect, tiles_y, tiles_x,
-                                               height, width)
-    grid = K._TileGrid(tiles_y, tiles_x, font_tex.device)
+    rect, (out_h, out_w) = slice_rect(n_tiles, tile0, tile_rect, tiles_y,
+                                      tiles_x, height, width)
+    if rect is None:
+        return _empty(background, layer_i16, out_w, font_tex.device)
+    ty0, tx0, ty1, _ = rect
+    rows = slice(ty0 * tiles_x, ty1 * tiles_x)
+    grid = K._TileGrid(tiles_y, tiles_x, font_tex.device, rows.start,
+                       rows.stop - rows.start)
     if background is not None:
         grid.fill(background)
     ftex = font_tex.float()
@@ -119,10 +166,9 @@ def render_tiles_blocks_plain(layers_blocks, font_tex, image_atlas,
     for cls_lists in layers_blocks:
         for ci in Z_ORDER:
             for tables, bins, lo, hi in cls_lists[ci]:
-                grid.scan(bins, K.class_step(ci, tables, ftex, atlas),
-                          lo=lo, hi=hi)
-    img = grid.image(height, width)[ty0 * TILE_H:ty0 * TILE_H + out_h,
-                                    tx0 * TILE_W:tx0 * TILE_W + out_w]
+                grid.scan(bins[rows], K.class_step(ci, tables, ftex, atlas),
+                          lo=None if lo is None else lo[rows], hi=hi[rows])
+    img = grid.image(out_h, tx0 * TILE_W + out_w)[:, tx0 * TILE_W:]
     if layer_i16:
         return quantize_i16(img)
     if background is None:
@@ -291,26 +337,27 @@ def render_tiles_blocks(layers_blocks, font_tex: torch.Tensor,
     device → the (height, width, 4) u8 frame, or with `background=None`
     the (height, width, 4) premultiplied layer, f32 or with `layer_i16`
     i16 at 1/32767; with `tile_rect` = (ty0, tx0, ty1, tx1) only those
-    tiles, cut out. font_tex (FH, FW) u8 SDF atlas; image_atlas (AH, AW, 4)
-    u8. On the CPU this is `render_tiles_blocks_plain`; on a CUDA device it
-    launches the kernel (and counts the launch in
-    `render_tiles_blocks.launches`) or raises. `n_tiles` / `tile0` (a
-    contiguous slice of tiles for a device mesh) are not ported."""
-    if n_tiles is not None or tile0 is not None:
-        raise NotImplementedError(
-            f"{_WHO}: n_tiles / tile0 (a mesh slice of tiles) are not "
-            "ported")
+    tiles, cut out; with `n_tiles` / `tile0`, a slice of whole tile rows
+    from global tile `tile0`, the slice's rows of that output (see the
+    module docstring). font_tex (FH, FW) u8 SDF atlas; image_atlas (AH, AW,
+    4) u8. On the CPU this is `render_tiles_blocks_plain`; on a CUDA device
+    it launches the kernel (and counts the launch in
+    `render_tiles_blocks.launches`) or raises."""
     if font_tex.device.type == "cpu":
         return render_tiles_blocks_plain(layers_blocks, font_tex,
                                          image_atlas, background, tiles_y,
-                                         tiles_x, height, width,
-                                         layer_i16=layer_i16,
+                                         tiles_x, height, width, n_tiles,
+                                         tile0, layer_i16=layer_i16,
                                          tile_rect=tile_rect)
     if font_tex.device.type != "cuda":
         raise ValueError(f"{_WHO}: unsupported device {font_tex.device}")
     _check_modes(background, layer_i16)
+    rect, (_, out_w) = slice_rect(n_tiles, tile0, tile_rect, tiles_y,
+                                  tiles_x, height, width)
+    if rect is None:   # pad rows alone: nothing to draw
+        return _empty(background, layer_i16, out_w, font_tex.device)
     return _launch(layers_blocks, font_tex, image_atlas, background,
-                   tiles_y, tiles_x, height, width, layer_i16, tile_rect)
+                   tiles_y, tiles_x, height, width, layer_i16, rect)
 
 
 render_tiles_blocks.launches = 0

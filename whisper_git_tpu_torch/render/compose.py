@@ -32,7 +32,17 @@ point at 1/32767, the reference's values in the port's layout; a chrome
 group only over the tile rect of its ink. The reference's
 other blend modes (f16 layers blended by an XLA chain, what it runs where
 it has no Pallas) have no counterpart: on the CPU K3's plain version
-blends the same i16 layers. The device-mesh branch is not ported.
+blends the same i16 layers.
+
+Under a render mesh (render/meshstate.py; parallel/mesh.py has the device
+model) every K2 build (a chrome group over its tile rect, a slab, a
+pre-rendered tail) runs a slice of whole tile rows a shard, gathered onto
+the first device; `_memo_stack` commits each cached layer to every shard's
+device once a plan; and the blend is K3 a shard over its slice of tile rows
+(`_compose_frame`), the slices gathered into the frame. The plans and the
+stacks key on the mesh, so a plan built under one mesh (or none) never
+serves another; the layer caches do not, since a layer is the same bits
+either way.
 
 Exactness: every layer keeps the rasterizer's per-command compositing
 inside; layer boundaries re-associate the `over` operator (exact where
@@ -58,6 +68,7 @@ from . import rasterizer as R
 from .blocks_kernel import quantize_i16 as _quant_i16_planar  # noqa: F401
 from .blocks_kernel import render_tiles_blocks
 from .compose_kernel import PlanRows, compose_tiles
+from .meshstate import get_render_mesh
 
 TILE_H = R.TILE_H
 TILE_W = R.TILE_W
@@ -99,6 +110,21 @@ def compose_enabled() -> bool:
 # `_quant_i16_planar` (the reference's name) is the plain blocks
 # rasterizer's quantizer, `blocks_kernel.quantize_i16`: on the card the
 # blocks kernel writes the same i16 values itself.
+
+
+def _render_layer(layers_blocks, font_tex, image_atlas, tiles_y: int,
+                  tiles_x: int, height: int, width: int, **kw):
+    """A layer over a transparent canvas from K2 (`render_tiles_blocks`'s
+    keywords): one call, or under a render mesh a slice of tile rows a
+    shard, gathered onto the first device."""
+    mesh = get_render_mesh()
+    if mesh is None:
+        return render_tiles_blocks(layers_blocks, font_tex, image_atlas,
+                                   None, tiles_y, tiles_x, height, width,
+                                   **kw)
+    return F._render_tiles_blocks_sharded(
+        layers_blocks, font_tex, image_atlas, None, tiles_y, tiles_x,
+        height, width, mesh, **kw).to(font_tex.device)
 
 
 def _single_class_blocks(ci: int, block):
@@ -214,10 +240,9 @@ def _chrome_group_image(members, chrome_entries, font_tex, image_atlas,
     tx1 = -(-x1 // TILE_W)
     # Only the ink's tiles are rasterized, once per content change, and
     # written as i16; every later frame then reads only those tiles.
-    layer = render_tiles_blocks(tuple(layers), font_tex, image_atlas, None,
-                                tiles_y, tiles_x, height, width,
-                                layer_i16=True,
-                                tile_rect=(ty0, tx0, ty1, tx1))
+    layer = _render_layer(tuple(layers), font_tex, image_atlas, tiles_y,
+                          tiles_x, height, width, layer_i16=True,
+                          tile_rect=(ty0, tx0, ty1, tx1))
     entry = (layer, ty0, tx0)
     while len(_GROUP_CACHE) > _img_cache_cap(12, font_tex.device):
         _GROUP_CACHE.pop(next(iter(_GROUP_CACHE)))
@@ -281,9 +306,9 @@ def _window_slab(w, gi, ci, art, caps, font_tex, image_atlas, tiles_x,
     tables = tuple(shifted[j] for j in _CLS_TBL[ci])
     block = (tables, torch.from_numpy(bins).to(device), None,
              torch.from_numpy(counts).to(device))
-    img = render_tiles_blocks(
-        _single_class_blocks(ci, block), font_tex, image_atlas, None,
-        tiles_y_slab, tiles_x, slab_h, width, layer_i16=True)
+    img = _render_layer(_single_class_blocks(ci, block), font_tex,
+                        image_atlas, tiles_y_slab, tiles_x, slab_h, width,
+                        layer_i16=True)
     while len(_SLAB_CACHE) > _img_cache_cap(24, device):
         _SLAB_CACHE.pop(next(iter(_SLAB_CACHE)))
     _SLAB_CACHE[key] = {"img": img, "y0s": y0s}
@@ -326,7 +351,10 @@ def _dyn_layer_cached(lb, li: int, tiles_y: int, tiles_x: int,
 
 def _pack_frame_blob(scene, slab_starts, tiles_y: int, tiles_x: int):
     """→ (blob i16, dyn_meta) where dyn_meta[li] = (caps3, ks3, c0, c1).
-    The volatile tail's bins cover only its tile-column range."""
+    The volatile tail's bins cover only its tile-column range, with a mesh
+    or without: K3 reads them by the global tile row on every slice. (The
+    reference's XLA blend under a mesh renders tails over the full grid;
+    the port has only the kernel blend.)"""
     parts = [np.asarray(slab_starts, np.int16)]
     dyn_meta = []
     for li, lb in enumerate(scene.layers):
@@ -381,9 +409,9 @@ def frame_tails(blob: torch.Tensor, font_tex, image_atlas, height: int,
                 dyns[(li, ci)] = (tabs[0].contiguous(), tabs[1].contiguous(),
                                   b, cnt)
             else:
-                dyns[(li, ci)] = render_tiles_blocks(
+                dyns[(li, ci)] = _render_layer(
                     _single_class_blocks(ci, (tabs, b, None, cnt)),
-                    font_tex, image_atlas, None, tiles_y, ts, height, sub_w)
+                    font_tex, image_atlas, tiles_y, ts, height, sub_w)
     kops = []
     for op in ops:
         if op[0] == "dyn":
@@ -403,20 +431,35 @@ def frame_tails(blob: torch.Tensor, font_tex, image_atlas, height: int,
 def _compose_frame(blob, images, slabs, font_tex, image_atlas,
                    background: tuple, height: int, width: int,
                    tiles_y: int, tiles_x: int, meta: tuple,
-                   rows: PlanRows | None = None) -> torch.Tensor:
+                   rows: PlanRows | None = None, mesh=None) -> torch.Tensor:
     """meta = (ops, dyn_meta, n_slabs); ops entries:
     ("img", i, ty0, tx0): composite images[i] at that tile offset;
     ("slab", j, clip): show slabs[j] from the blob's start j, masked to
     the clip's rows;
     ("dyn", li, ci): that volatile tail, from the blob.
     `rows`: the plan's descriptor rows of its "img" and "slab" ops.
+    Under `mesh`, `images`, `slabs` and `rows` hold one entry a shard (the
+    plan's layers on that shard's device), and each shard blends its slice
+    of tile rows of the row-padded grid; the slices are gathered.
     → the (height, width, 4) u8 frame on the blob's device."""
     starts, dyns, kops = frame_tails(blob, font_tex, image_atlas, height,
                                      width, tiles_y, tiles_x, meta)
-    return compose_tiles(starts, tuple(images), tuple(slabs), dyns,
-                         ops=kops, tiles_y=tiles_y, tiles_x=tiles_x,
-                         background=background, height=height, width=width,
-                         rows=rows)
+    if mesh is None:
+        return compose_tiles(starts, tuple(images), tuple(slabs), dyns,
+                             ops=kops, tiles_y=tiles_y, tiles_x=tiles_x,
+                             background=background, height=height,
+                             width=width, rows=rows)
+    _, ty_pad = F._sharded_tile_rows(tiles_y, tiles_x, mesh)
+    local = ty_pad // mesh.size
+    parts = []
+    for s, dev in enumerate(mesh.flat):
+        starts_s, dyns_s = F.replicate((starts, dyns), dev)
+        parts.append(compose_tiles(
+            starts_s, images[s], slabs[s], dyns_s, ops=kops,
+            tiles_y=tiles_y, tiles_x=tiles_x, background=background,
+            height=height, width=width, n_rows=local, row0=s * local,
+            rows=rows[s]))
+    return F.gather(parts, blob.device)
 
 
 # Plan memo: everything about a frame that is NOT the scroll offset. A
@@ -437,18 +480,27 @@ _STACK_CACHE: dict = {}   # (kind, member keys, device) -> tuple of layers
 
 
 def _memo_stack(kind: str, keys: tuple, arrays, device):
-    """Layer collection memoized by the members' content keys: a plain
-    tuple of the cache-resident tensors (no copies; cropped chrome layers
-    keep their own shapes). A plan rebuild happens every ~128 px of scroll
-    (the window uid moves with the layout's materialization bucket) and on
-    any chrome change; whichever side (chrome groups or slabs) is still a
-    cache hit reuses the previous collection object, and the tests key on
-    its identity."""
-    key = (kind, keys, str(device))
+    """Layer collection memoized by the members' content keys and the
+    render mesh. A plan rebuild happens every ~128 px of scroll (the window
+    uid moves with the layout's materialization bucket) and on any chrome
+    change; whichever side (chrome groups or slabs) is still a cache hit
+    reuses the previous collection object, and the tests key on its
+    identity.
+
+    With no mesh: a plain tuple of the cache-resident tensors (no copies;
+    cropped chrome layers keep their own shapes). Under a mesh: such a
+    tuple a shard, each layer committed to that shard's device once, here,
+    so no frame copies a cached layer (on the layer's own device the
+    tensor itself)."""
+    mesh = get_render_mesh()
+    key = (kind, keys, str(device), mesh)
     hit = _lru_get(_STACK_CACHE, key)
     if hit is not None:
         return hit
-    out = tuple(arrays)
+    if mesh is None:
+        out = tuple(arrays)
+    else:
+        out = tuple(tuple(a.to(dev) for a in arrays) for dev in mesh.flat)
     while len(_STACK_CACHE) > _img_cache_cap(8, device):
         _STACK_CACHE.pop(next(iter(_STACK_CACHE)))
     _STACK_CACHE[key] = out
@@ -491,15 +543,20 @@ def _build_plan(scene, windows, chrome_entries, win_art, win_caps,
     ops = tuple(op_meta)
     img_stack = _memo_stack("img", tuple(img_keys), images, device)
     slab_stack = _memo_stack("slab", tuple(slab_keys), slabs, device)
+    # The compose kernel's descriptors of the cached layers, checked here
+    # and kept while the plan lives (a shard's each under a mesh); a frame
+    # fills only its tails'.
+    mesh = get_render_mesh()
+    rows = PlanRows(img_stack, slab_stack, ops, device) if mesh is None \
+        else tuple(PlanRows(img_stack[s], slab_stack[s], ops, dev)
+                   for s, dev in enumerate(mesh.flat))
     return {
         "ops": ops,
         "img_stack": img_stack,
         "slab_stack": slab_stack,
         "slab_src": tuple(slab_src),
         "slab_h": _slab_height(height),
-        # The compose kernel's descriptors of the cached layers, checked
-        # here and kept while the plan lives; a frame fills only its tails'.
-        "rows": PlanRows(img_stack, slab_stack, ops, device),
+        "rows": rows,
     }
 
 
@@ -560,7 +617,12 @@ def prepare_compose_dispatch(scene, font_tex, image_atlas):
                 # would never be composited.
                 tuple((lb.n_dyn_shapes > 0, lb.n_dyn_images > 0,
                        lb.n_dyn_glyphs > 0) for lb in scene.layers),
-                height, width, str(device))
+                height, width, str(device),
+                # The mesh: a plan's stacks and descriptor rows are one a
+                # shard under a mesh, and a plan built under one must never
+                # serve another (`render_scene_sharded` flips the mesh per
+                # call without clearing caches).
+                get_render_mesh())
     plan = _lru_get(_PLAN_CACHE, plan_key)
     if plan is not None:
         # slab validity: the crop must stay inside every cached slab
@@ -602,7 +664,8 @@ def prepare_compose_dispatch(scene, font_tex, image_atlas):
             image_atlas)
     statics = dict(background=tuple(float(c) for c in scene.background[:3]),
                    height=height, width=width, tiles_y=tiles_y,
-                   tiles_x=tiles_x, meta=meta, rows=plan["rows"])
+                   tiles_x=tiles_x, meta=meta, rows=plan["rows"],
+                   mesh=get_render_mesh())
     return args, statics
 
 

@@ -25,6 +25,13 @@ one quantize clip(x·255 + 0.5), alpha 255. The layouts are the port's own:
           ("dyni", li, ci, c0, ts), ("dyn", li, ci, c0); a "dyni" or "dyn"
           whose key is not in `dyns` is skipped
 
+`n_rows` / `row0`, a device mesh's slice, blend only the tile rows [row0,
+row0 + n_rows) and give those rows of the frame; every input and every
+coordinate stays the whole frame's (a layer's tile offset, a slab's start, a
+tail's rows). The rows a mesh pads the grid with, past the frame's, are left
+out: no CTA runs there, and a slice of pad rows alone launches nothing. The
+slices of a mesh put together along the rows are the frame.
+
 `compose_tiles` is the entry point. Tensors on the CPU take
 `compose_tiles_plain`; CUDA tensors launch the kernel in
 `csrc/compose_tiles.cu` (built with nvcc on first use, loaded with ctypes)
@@ -72,7 +79,9 @@ _SRC_ALIGN = {"img": 8, "slab": 8, "dyni": 4, "dyn": 16}
 
 def _over_region(fb, y0: int, x0: int, src):
     """Blend premultiplied `src` (h, w, 4) f32 over fb (H, W, 3) at pixel
-    offset (y0, x0), cut to the frame."""
+    offset (y0, x0), cut to fb (y0 < 0: src starts above it)."""
+    if y0 < 0:
+        src, y0 = src[-y0:], 0
     h = min(src.shape[0], fb.shape[0] - y0)
     w = min(src.shape[1], fb.shape[1] - x0)
     if h <= 0 or w <= 0:
@@ -86,29 +95,50 @@ def _dequant_i16(layer: torch.Tensor) -> torch.Tensor:
     return layer.float() * torch.tensor(_I16_INV, device=layer.device)
 
 
+def slice_rows(n_rows, row0, tiles_y: int, height: int) -> tuple:
+    """The tile rows a call blends, [r0, r1): the slice `n_rows` / `row0`
+    (both or neither; the whole grid for neither) cut to the frame's tiles.
+    → (r0, r1, the output's rows, ≥ 0)."""
+    if (n_rows is None) != (row0 is None):
+        raise ValueError(f"{_WHO}: n_rows and row0 go together")
+    if n_rows is None:
+        return 0, tiles_y, height
+    n_rows, row0 = int(n_rows), int(row0)
+    if n_rows <= 0 or row0 < 0:
+        raise ValueError(f"{_WHO}: no slice of {n_rows} tile rows from row "
+                         f"{row0}")
+    r1 = min(row0 + n_rows, tiles_y)
+    return row0, max(r1, row0), max(min(r1 * TILE_H, height)
+                                    - row0 * TILE_H, 0)
+
+
 def compose_tiles_plain(starts, images, slabs, dyns, *, ops: tuple,
                         tiles_y: int, tiles_x: int, background: tuple,
-                        height: int, width: int) -> torch.Tensor:
+                        height: int, width: int, n_rows: int | None = None,
+                        row0=None) -> torch.Tensor:
     """The plain version of `compose_tiles`: the same ops in the same
-    order on whole-frame tensors (a region blend for "img" and "dyn", a row
-    slice for "slab", the plain shape command of `raster_kernel` on the
-    sub-grid's own tile grid for "dyni")."""
+    order on whole-frame tensors, or on a slice's rows (a region blend for
+    "img" and "dyn", a row slice for "slab", the plain shape command of
+    `raster_kernel` on the sub-grid's own tile grid for "dyni")."""
     device = starts.device
-    fb = torch.empty((height, width, 3), dtype=torch.float32, device=device)
+    r0, r1, out_h = slice_rows(n_rows, row0, tiles_y, height)
+    y_base = r0 * TILE_H   # frame row of fb's first
+    fb = torch.empty((out_h, width, 3), dtype=torch.float32, device=device)
     fb[:] = torch.tensor([float(c) for c in background[:3]],
                          dtype=torch.float32, device=device)
-    py = torch.arange(height, dtype=torch.float32, device=device) + 0.5
-    for op in ops:
+    py = torch.arange(out_h, dtype=torch.float32, device=device) \
+        + (y_base + 0.5)
+    for op in ops if out_h else ():
         if op[0] == "img":
             _, i, ty0, tx0 = op
-            _over_region(fb, ty0 * TILE_H, tx0 * TILE_W,
+            _over_region(fb, ty0 * TILE_H - y_base, tx0 * TILE_W,
                          _dequant_i16(images[i]))
         elif op[0] == "slab":
             _, j, clip = op
             slab = slabs[j]
-            start = int(starts[j])
+            start = int(starts[j]) + y_base
             lo = max(start, 0)
-            hi = min(start + height, slab.shape[0])
+            hi = min(start + out_h, slab.shape[0])
             if hi <= lo:
                 continue
             y0 = lo - start
@@ -125,23 +155,25 @@ def compose_tiles_plain(starts, images, slabs, dyns, *, ops: tuple,
             sub_w = min(ts * TILE_W, width - x0)
             if sub_w <= 0:
                 continue
-            grid = K._TileGrid(tiles_y, ts, device)
-            canvas = torch.zeros((tiles_y * TILE_H, ts * TILE_W, 4),
+            n = r1 - r0
+            grid = K._TileGrid(tiles_y, ts, device, r0 * ts, n * ts)
+            canvas = torch.zeros((n * TILE_H, ts * TILE_W, 4),
                                  dtype=torch.float32, device=device)
-            canvas[:height, :sub_w, :3] = fb[:, x0:x0 + sub_w]
+            canvas[:out_h, :sub_w, :3] = fb[:, x0:x0 + sub_w]
             canvas[..., 3] = 1.0
-            grid.fb = canvas.reshape(tiles_y, TILE_H, ts, TILE_W, 4).permute(
-                0, 2, 4, 1, 3).reshape(tiles_y * ts, 4, TILE_H, TILE_W
+            grid.fb = canvas.reshape(n, TILE_H, ts, TILE_W, 4).permute(
+                0, 2, 4, 1, 3).reshape(n * ts, 4, TILE_H, TILE_W
                                        ).contiguous()
-            grid.scan(bins, K.class_step(0, (shapes, sclips), None, None),
-                      hi=counts)
-            fb[:, x0:x0 + sub_w] = grid.image(height, sub_w)[..., :3]
+            rows = slice(r0 * ts, r1 * ts)
+            grid.scan(bins[rows], K.class_step(0, (shapes, sclips), None,
+                                               None), hi=counts[rows])
+            fb[:, x0:x0 + sub_w] = grid.image(out_h, sub_w)[..., :3]
         else:
             layer = dyns.get((op[1], op[2]))
             if layer is None:
                 continue
-            _over_region(fb, 0, op[3] * TILE_W, layer)
-    out = torch.empty((height, width, 4), dtype=torch.uint8, device=device)
+            _over_region(fb, -y_base, op[3] * TILE_W, layer)
+    out = torch.empty((out_h, width, 4), dtype=torch.uint8, device=device)
     out[..., :3] = K.quantize_u8(fb)
     out[..., 3] = 255
     return out
@@ -178,7 +210,7 @@ class _ComposeParams(ctypes.Structure):
                 ("bg_b", ctypes.c_float),
                 ("tiles_x", ctypes.c_int), ("tiles_y", ctypes.c_int),
                 ("height", ctypes.c_int), ("width", ctypes.c_int),
-                ("out", ctypes.c_void_p),
+                ("row0", ctypes.c_int), ("out", ctypes.c_void_p),
                 ("inline_ops",
                  ctypes.c_ubyte * (MAX_INLINE_OPS * _OP_DESC.itemsize))]
 
@@ -333,7 +365,8 @@ def op_descriptors(images, slabs, dyns, ops: tuple, tiles_y: int,
 
 
 def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
-            height, width, rows) -> torch.Tensor:
+            height, width, rows, r0=0, r1=None,
+            out_h=None) -> torch.Tensor:
     device = starts.device
     K.check_frame_fits(height, width, tiles_y, tiles_x, _WHO)
     K.check_tensor(starts, "starts", torch.int32, device, 1, _WHO)
@@ -354,10 +387,13 @@ def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
     p.bg_r, p.bg_g, p.bg_b = (float(c) for c in background[:3])
     p.tiles_x, p.tiles_y = tiles_x, tiles_y
     p.height, p.width = height, width
-    out = torch.empty((height, width, 4), device=device, dtype=torch.uint8)
+    r1 = tiles_y if r1 is None else r1
+    p.row0 = r0
+    out = torch.empty((height if out_h is None else out_h, width, 4),
+                      device=device, dtype=torch.uint8)
     p.out = out.data_ptr()
     rc = K.launch_on(device, lambda stream: lib.compose_tiles_launch(
-        ctypes.byref(p), tiles_y * tiles_x, ROWS_PER_THREAD, stream))
+        ctypes.byref(p), (r1 - r0) * tiles_x, ROWS_PER_THREAD, stream))
     if rc != 0:
         raise RuntimeError("compose_tiles kernel launch failed: "
                            + lib.compose_tiles_error_string(rc).decode())
@@ -375,25 +411,25 @@ def compose_tiles(starts: torch.Tensor, images: tuple, slabs: tuple,
                   n_rows: int | None = None, row0=None,
                   rows: PlanRows | None = None) -> torch.Tensor:
     """Blend the plan's layers (see the module docstring) on `starts`'
-    device → the (height, width, 4) u8 frame. On the CPU this is
-    `compose_tiles_plain`; on a CUDA device it launches the kernel (and
-    counts the launch in `compose_tiles.launches`) or raises. `rows`: the
-    plan's `PlanRows`, which spare a frame the "img" and "slab" rows.
-    `n_rows` / `row0` (a slice of tile rows for a device mesh) are not
-    ported."""
-    if n_rows is not None or row0 is not None:
-        raise NotImplementedError(
-            f"{_WHO}: n_rows / row0 (a mesh slice of tile rows) are not "
-            "ported")
+    device → the (height, width, 4) u8 frame; with `n_rows` / `row0`, a
+    slice of tile rows from global row `row0`, that slice's rows of it. On
+    the CPU this is `compose_tiles_plain`; on a CUDA device it launches the
+    kernel (and counts the launch in `compose_tiles.launches`) or raises.
+    `rows`: the plan's `PlanRows`, which spare a frame the "img" and "slab"
+    rows."""
     if starts.device.type == "cpu":
         return compose_tiles_plain(starts, images, slabs, dyns, ops=ops,
                                    tiles_y=tiles_y, tiles_x=tiles_x,
                                    background=background, height=height,
-                                   width=width)
+                                   width=width, n_rows=n_rows, row0=row0)
     if starts.device.type != "cuda":
         raise ValueError(f"{_WHO}: unsupported device {starts.device}")
+    r0, r1, out_h = slice_rows(n_rows, row0, tiles_y, height)
+    if not out_h:   # pad rows alone: nothing to blend
+        return torch.empty((0, width, 4), device=starts.device,
+                           dtype=torch.uint8)
     return _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x,
-                   background, height, width, rows)
+                   background, height, width, rows, r0, r1, out_h)
 
 
 compose_tiles.launches = 0

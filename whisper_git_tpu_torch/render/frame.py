@@ -33,7 +33,10 @@ frame stream: between consecutive frames almost nothing changes.
 
 Everything renders through `blocks_kernel.render_tiles_blocks` (K2), whose
 per-command functions are the packed path's, so the frame is bit-identical
-to the packed path's. Times and upload sizes measured on the card are in
+to the packed path's. Under a render mesh (render/meshstate.py) each shard
+renders a slice of whole tile rows through K2 on its device, and the slices
+are gathered (`_render_tiles_blocks_sharded`; parallel/mesh.py has the
+device model). Times and upload sizes measured on the card are in
 PERF.md (`chip_smoke.py` prints them); none is repeated here.
 
 The host half (`pack_frame` and what it calls) is the reference's numpy
@@ -643,6 +646,80 @@ def build_blocks(frame_blob: torch.Tensor, chrome_args, win_args,
 
 
 # ---------------------------------------------------------------------------
+# Mesh-sharded tile rendering: the frame paths under a device mesh. Every
+# shard renders a contiguous slice of whole tile rows of a grid padded to a
+# multiple of the mesh size, through the same kernel, with the inputs
+# replicated to its device; the slices are gathered onto the first device.
+# ---------------------------------------------------------------------------
+
+_REPLICAS: dict = {}   # (id, version, device) -> (tensor, its copy there)
+
+
+def replicate(tree, device):
+    """`tree` (tensors in tuples, lists and dicts; anything else kept) with
+    every tensor on `device`: the tensor itself where it lies there
+    already, so a mesh of one device copies nothing. A copy made of a
+    tensor is kept while the tensor lives unchanged (the atlases, a plan's
+    layers), so a steady frame uploads it once a device."""
+    device = torch.device(device)
+    if isinstance(tree, torch.Tensor):
+        if tree.device == device:
+            return tree
+        key = (id(tree), tree._version, str(device))
+        hit = _REPLICAS.get(key)
+        if hit is None or hit[0] is not tree:
+            while len(_REPLICAS) > 64:
+                _REPLICAS.pop(next(iter(_REPLICAS)))
+            hit = (tree, tree.to(device))
+            _REPLICAS[key] = hit
+        return hit[1]
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(replicate(x, device) for x in tree)
+    if isinstance(tree, dict):
+        return {k: replicate(v, device) for k, v in tree.items()}
+    return tree
+
+
+def gather(parts, device) -> torch.Tensor:
+    """The shards' outputs, moved to `device` and joined along their first
+    axis (rows of a frame or a layer, tiles of a slice)."""
+    return torch.cat([p.to(device) for p in parts])
+
+
+def _sharded_tile_rows(tiles_y: int, tiles_x: int, mesh) -> tuple:
+    """(T_pad, ty_pad) for a tile-ROW-aligned n-way split: tiles_y pads to
+    a multiple of the mesh size so each shard owns whole tile rows."""
+    ty_pad = -(-tiles_y // mesh.size) * mesh.size
+    return ty_pad * tiles_x, ty_pad
+
+
+def _render_tiles_blocks_sharded(layers_blocks, font_tex, image_atlas,
+                                 background, tiles_y: int, tiles_x: int,
+                                 height: int, width: int, mesh, *,
+                                 layer_i16: bool = False,
+                                 tile_rect: tuple | None = None
+                                 ) -> torch.Tensor:
+    """`render_tiles_blocks` over `mesh` (every axis jointly the spatial
+    one): shard s renders tile rows [s·L, (s+1)·L) of the row-padded grid
+    (`_sharded_tile_rows`, L = ty_pad / n) on its device, within
+    `tile_rect` where one is given, and the slices are gathered onto the
+    mesh's first device: the output of one call, bit for bit. A shard
+    whose slice holds no row of the frame (or of the rect) launches
+    nothing."""
+    _, ty_pad = _sharded_tile_rows(tiles_y, tiles_x, mesh)
+    local = ty_pad // mesh.size
+    parts = []
+    for s, dev in enumerate(mesh.flat):
+        lb, ftex, iatlas = replicate((layers_blocks, font_tex, image_atlas),
+                                     dev)
+        parts.append(render_tiles_blocks(
+            lb, ftex, iatlas, background, tiles_y, tiles_x, height, width,
+            n_tiles=local * tiles_x, tile0=s * local * tiles_x,
+            layer_i16=layer_i16, tile_rect=tile_rect))
+    return gather(parts, mesh.flat[0])
+
+
+# ---------------------------------------------------------------------------
 # Public API.
 # ---------------------------------------------------------------------------
 
@@ -657,16 +734,24 @@ def render_frame_device(scene: Scene, font_tex: torch.Tensor,
                         image_atlas: torch.Tensor | None = None
                         ) -> torch.Tensor:
     """Rasterize → (H, W, 4) u8 frame on `font_tex`'s device (no
-    readback), through the frame cache and the blocks kernel."""
+    readback), through the frame cache and the blocks kernel. When a render
+    mesh is installed (render/meshstate.py) the tile rows shard across
+    it."""
+    from .meshstate import get_render_mesh
+
     device = font_tex.device
     if image_atlas is None:
         image_atlas = torch.from_numpy(scene.image_atlas).to(device)
     frame_blob, chrome_args, win_args, meta = pack_frame(scene, device)
     blocks = build_blocks(torch.from_numpy(frame_blob).to(device),
                           chrome_args, win_args, meta)
-    return render_tiles_blocks(blocks, font_tex, image_atlas,
-                               tuple(float(c) for c in scene.background[:3]),
-                               meta[0], meta[1], scene.height, scene.width)
+    args = (blocks, font_tex, image_atlas,
+            tuple(float(c) for c in scene.background[:3]), meta[0], meta[1],
+            scene.height, scene.width)
+    mesh = get_render_mesh()
+    if mesh is not None:
+        return _render_tiles_blocks_sharded(*args, mesh).to(device)
+    return render_tiles_blocks(*args)
 
 
 def clear_caches() -> None:

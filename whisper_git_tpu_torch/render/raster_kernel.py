@@ -162,18 +162,21 @@ def _image_cmd(fb, px1, py1, q, clips, atlas, px, py):
 
 
 class _TileGrid:
-    """Pixel-centre coordinates of every tile, and the canvas."""
+    """Pixel-centre coordinates of every tile, and the canvas; with
+    `tile0` / `n_tiles` of the tiles [tile0, tile0 + n_tiles) alone, each
+    at its place in the grid (`image` then takes whole tile rows)."""
 
-    def __init__(self, tiles_y: int, tiles_x: int, device):
-        T = tiles_y * tiles_x
-        tile = torch.arange(T, device=device)
+    def __init__(self, tiles_y: int, tiles_x: int, device, tile0: int = 0,
+                 n_tiles: int | None = None):
+        T = tiles_y * tiles_x if n_tiles is None else n_tiles
+        tile = tile0 + torch.arange(T, device=device)
         org_x = (tile % tiles_x).float() * TILE_W
         org_y = (tile // tiles_x).float() * TILE_H
         xx = torch.arange(TILE_W, dtype=torch.float32, device=device)
         yy = torch.arange(TILE_H, dtype=torch.float32, device=device)
         self.px1 = xx + org_x[:, None] + 0.5                  # (T, TW)
         self.py1 = yy + org_y[:, None] + 0.5                  # (T, TH)
-        self.tiles_y, self.tiles_x = tiles_y, tiles_x
+        self.tiles_y, self.tiles_x = T // tiles_x, tiles_x
         self.fb = torch.zeros((T, 4, TILE_H, TILE_W), dtype=torch.float32,
                               device=device)
 
@@ -204,7 +207,7 @@ class _TileGrid:
 
     def image(self, height: int, width: int) -> torch.Tensor:
         """The canvas as one (height, width, 4) f32 image, ragged edge
-        cropped."""
+        cropped (of a slice: its rows, from its first)."""
         img = self.fb.reshape(self.tiles_y, self.tiles_x, 4, TILE_H, TILE_W)
         img = img.permute(0, 3, 1, 4, 2).reshape(self.tiles_y * TILE_H,
                                                  self.tiles_x * TILE_W, 4)
@@ -304,16 +307,20 @@ def extent_tile_pixels(ext: torch.Tensor, tile: torch.Tensor, tiles_x: int,
 
 def render_tiles_plain(layer_data, font_tex, image_atlas, background: tuple,
                        tiles_y: int, tiles_x: int, layer_sig: tuple,
-                       height: int, width: int) -> torch.Tensor:
+                       height: int, width: int, n_tiles: int | None = None,
+                       tile0: int | None = None) -> torch.Tensor:
     """The plain version of `render_tiles`: batched over tiles, looping k
-    over each class's bin width."""
-    grid = _TileGrid(tiles_y, tiles_x, font_tex.device)
+    over each class's bin width; of a slice, its tiles alone."""
+    t0 = _check_slice(n_tiles, tile0)
+    grid = _TileGrid(tiles_y, tiles_x, font_tex.device, t0, n_tiles)
     grid.fill(background)
     ftex = font_tex.float()
     atlas = image_atlas.float()
+    rows = slice(t0, t0 + grid.px1.shape[0])
     for li, (has_s, has_g, has_i) in enumerate(layer_sig):
         (shapes, shape_clips, glyphs, glyph_colors, glyph_clips, images,
          image_clips, s_bins, g_bins, i_bins) = layer_data[li]
+        s_bins, g_bins, i_bins = s_bins[rows], g_bins[rows], i_bins[rows]
         if has_s:
             grid.scan(s_bins, class_step(0, (shapes, shape_clips), ftex,
                                          atlas))
@@ -323,7 +330,22 @@ def render_tiles_plain(layer_data, font_tex, image_atlas, background: tuple,
         if has_g:
             grid.scan(g_bins, class_step(
                 1, (glyphs, glyph_colors, glyph_clips), ftex, atlas))
+    if n_tiles is not None:
+        return grid.fb.permute(0, 2, 3, 1).contiguous()
     return quantize_u8(grid.image(height, width))
+
+
+def _check_slice(n_tiles, tile0) -> int:
+    """The first tile of a slice `n_tiles` / `tile0` (both or neither),
+    0 for none; raises on a slice that is not one."""
+    if (n_tiles is None) != (tile0 is None):
+        raise ValueError("render_tiles: n_tiles and tile0 go together")
+    if n_tiles is None:
+        return 0
+    if int(n_tiles) <= 0 or int(tile0) < 0:
+        raise ValueError(f"render_tiles: no slice of {n_tiles} tiles from "
+                         f"tile {tile0}")
+    return int(tile0)
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +377,7 @@ UNITS = ((32, 4), (64, 4), (32, 8), (32, 16), (128, 16))
 # layer (its ten pointers, the three widths, the pad), empty rows up to
 # MAX_LAYERS, then the atlases, background, grid and output.
 _LAYER_PACK = struct.Struct("<10Q4i")
-_TAIL_PACK = struct.Struct("<Q2iQ2i3f5iQ")
+_TAIL_PACK = struct.Struct("<Q2iQ2i3f5iQ2i")
 _NO_LAYER = bytes(_LAYER_PACK.size)
 
 
@@ -514,11 +536,13 @@ def check_frame_fits(height, width, tiles_y, tiles_x, who: str):
                          f"fit {tiles_x}x{tiles_y} tiles")
 
 
-def _layer_row(li: int, sig: tuple, parts, device, T: int) -> bytes:
+def _layer_row(li: int, sig: tuple, parts, device, T: int,
+               at_least: bool = False) -> bytes:
     """Layer `li`'s `LayerTables` row: its seven f32 tables and three bins
-    tables checked (contiguous, 2-d, on `device`; the bins' T rows) and
-    their pointers packed, a class the layer does not draw at width 0.
-    Raises on the first tensor the kernel cannot take."""
+    tables checked (contiguous, 2-d, on `device`; the bins' T rows, or with
+    `at_least` T or more) and their pointers packed, a class the layer does
+    not draw at width 0. Raises on the first tensor the kernel cannot
+    take."""
     if len(parts) != 10:
         raise ValueError(f"render_tiles: layer {li} has {len(parts)} "
                          "tensors, expected 7 tables and 3 bins")
@@ -529,7 +553,8 @@ def _layer_row(li: int, sig: tuple, parts, device, T: int) -> bytes:
             check_tensor(t, f"layer {li} {(_TABLES + _BINS)[i]}",
                          f32 if i < 7 else i32, device, 2)
     s_bins, g_bins, i_bins = parts[7:]
-    if not s_bins.shape[0] == g_bins.shape[0] == i_bins.shape[0] == T:
+    if not s_bins.shape[0] == g_bins.shape[0] == i_bins.shape[0] \
+            or (s_bins.shape[0] < T if at_least else s_bins.shape[0] != T):
         raise ValueError(f"render_tiles: layer {li} bins have "
                          f"{s_bins.shape[0]}, {g_bins.shape[0]} and "
                          f"{i_bins.shape[0]} rows for {T} tiles")
@@ -540,20 +565,24 @@ def _layer_row(li: int, sig: tuple, parts, device, T: int) -> bytes:
 
 
 def _pack_params(rows, font_tex, image_atlas, background, tiles_y, tiles_x,
-                height, width, out) -> bytes:
+                height, width, out, tile0: int = 0) -> bytes:
     """The `RasterParams` block: the layers' rows (`_layer_row`), empty rows
-    up to MAX_LAYERS, the atlases, background, grid and output."""
+    up to MAX_LAYERS, the atlases, background, grid, output and the first
+    tile launched (an f32 `out` is a slice's canvas)."""
     return b"".join(rows) + _NO_LAYER * (MAX_LAYERS - len(rows)) \
         + _TAIL_PACK.pack(font_tex.data_ptr(), *font_tex.shape,
                           image_atlas.data_ptr(), *image_atlas.shape[:2],
                           *(float(c) for c in background[:3]), len(rows),
-                          tiles_x, tiles_y, height, width, out.data_ptr())
+                          tiles_x, tiles_y, height, width, out.data_ptr(),
+                          tile0, int(out.dtype == torch.float32))
 
 
 def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
-            tiles_x, layer_sig, height, width) -> torch.Tensor:
+            tiles_x, layer_sig, height, width, n_tiles=None,
+            tile0=None) -> torch.Tensor:
     device = font_tex.device
-    T = tiles_y * tiles_x
+    t0 = _check_slice(n_tiles, tile0)
+    T = tiles_y * tiles_x if n_tiles is None else t0 + n_tiles
     if len(layer_sig) > MAX_LAYERS:
         raise ValueError(f"render_tiles: {len(layer_sig)} layers; the "
                          f"kernel takes at most {MAX_LAYERS}")
@@ -562,13 +591,19 @@ def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
     if _LIB["lib"] is None:
         build()
     lib = _LIB["lib"]
-    rows = [_layer_row(li, sig, layer_data[li], device, T)
+    rows = [_layer_row(li, sig, layer_data[li], device, T,
+                       n_tiles is not None)
             for li, sig in enumerate(layer_sig)]
-    out = torch.empty((height, width, 4), dtype=torch.uint8, device=device)
+    if n_tiles is None:
+        out = torch.empty((height, width, 4), dtype=torch.uint8,
+                          device=device)
+    else:
+        out = torch.empty((n_tiles, TILE_H, TILE_W, 4), dtype=torch.float32,
+                          device=device)
     params = _pack_params(rows, font_tex, image_atlas, background, tiles_y,
-                         tiles_x, height, width, out)
+                          tiles_x, height, width, out, t0)
     rc = launch_on(device, lambda stream: lib.raster_tiles_launch(
-        params, T, STRIP_W, ROWS_PER_THREAD, stream))
+        params, T - t0, STRIP_W, ROWS_PER_THREAD, stream))
     if rc != 0:
         raise RuntimeError("raster_tiles kernel launch failed: "
                            + lib.raster_tiles_error_string(rc).decode())
@@ -579,7 +614,8 @@ def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
 def render_tiles(layer_data, font_tex: torch.Tensor,
                  image_atlas: torch.Tensor, background: tuple,
                  tiles_y: int, tiles_x: int, layer_sig: tuple,
-                 height: int, width: int) -> torch.Tensor:
+                 height: int, width: int, n_tiles: int | None = None,
+                 tile0: int | None = None) -> torch.Tensor:
     """Rasterize unpacked layer tables → (height, width, 4) u8 on
     `font_tex`'s device.
 
@@ -590,15 +626,22 @@ def render_tiles(layer_data, font_tex: torch.Tensor,
     has_images). font_tex (FH, FW) u8 SDF atlas; image_atlas (AH, AW, 4)
     u8. On the CPU this is `render_tiles_plain`; on a CUDA device it
     launches the kernel (and counts the launch in `render_tiles.launches`)
-    or raises."""
+    or raises.
+
+    `n_tiles` / `tile0`, a slice for a device mesh (the reference's
+    `parallel/mesh.py::_render_tile_slice`): only the tiles [tile0, tile0
+    + n_tiles), each with its pixel origin and bins row from its global id
+    (the bins keep at least tile0 + n_tiles rows; a row past the frame's
+    tiles, −1 throughout, gives the bare background) → their canvas before
+    the quantize, (n_tiles, TILE_H, TILE_W, 4) f32, whole tiles."""
     if font_tex.device.type == "cpu":
         return render_tiles_plain(layer_data, font_tex, image_atlas,
                                   background, tiles_y, tiles_x, layer_sig,
-                                  height, width)
+                                  height, width, n_tiles, tile0)
     if font_tex.device.type != "cuda":
         raise ValueError(f"render_tiles: unsupported device {font_tex.device}")
     return _launch(layer_data, font_tex, image_atlas, background, tiles_y,
-                   tiles_x, layer_sig, height, width)
+                   tiles_x, layer_sig, height, width, n_tiles, tile0)
 
 
 render_tiles.launches = 0

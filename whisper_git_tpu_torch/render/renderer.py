@@ -2,7 +2,10 @@
 rasterizer on one device.
 
 The per-frame path: layout_tree → SceneCompiler.compile →
-render_scene_device → (H, W, 4) u8 on the device. Counterpart of
+render_scene_device → (H, W, 4) u8 on the device (`Renderer.render` runs it
+for one element tree and reads the frame back). With more than one card
+visible, the renderer shards the frame pipeline over all of them
+(`render/meshstate.py::maybe_auto_mesh`). Counterpart of
 `whisper_git_tpu/render/renderer.py`. The resident atlases come from the
 committed npz (no Pillow, matplotlib or EDT at start-up). A codepoint
 outside them goes to the lazy fallback bank (`render/fallback.py`), which
@@ -47,6 +50,12 @@ def resolve_device(device) -> torch.device:
 class Renderer:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
+        from .meshstate import maybe_auto_mesh
+
+        # Several cards: shard the frame pipeline over every one of them
+        # (nothing on one card or on the CPU; see render/meshstate.py and
+        # parallel/mesh.py).
+        maybe_auto_mesh(self.device)
         self.regular, self.bold = load_atlases()
         self.font_tex = font_texture(self.regular, self.bold)
         self.compiler = SceneCompiler(
@@ -109,6 +118,19 @@ class Renderer:
     def compile(self, root: LayoutNode, viewport: tuple[int, int],
                 background: tuple) -> Scene:
         return self.compiler.compile(root, viewport, background)
+
+    def render(self, el: El, viewport: tuple[int, int],
+               background: Optional[tuple] = None) -> np.ndarray:
+        """Layout, compile and render `el` at `viewport` on this renderer's
+        device → the (H, W, 4) u8 frame on the host."""
+        from ..ui.theme import DARK
+        from .rasterizer import render_scene
+
+        bg = background or DARK.background
+        root = self.layout(el, viewport)
+        scene = self.compile(root, viewport, bg)
+        return render_scene(scene, self.font_tex_device(),
+                            self.image_atlas_device())
 
 
 _RENDERERS: dict = {}

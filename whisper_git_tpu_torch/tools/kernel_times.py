@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time a kernel of the port on the card, for one checkout.
 
-    python3 whisper_git_tpu_torch/tools/kernel_times.py {raster,slabs}
-        [--root DIR]
+    python3 whisper_git_tpu_torch/tools/kernel_times.py
+        {raster,slabs,compose} [--root DIR] [--repo REPO]
 
-Both modes open the generated history repository of `chip_smoke.py` and
-compile its history view at 1280x800, scroll offset 0.
+Every mode opens the generated history repository of `chip_smoke.py` (or
+the repository `--repo` names, made by it) and compiles its history view at
+1280x800, scroll offset 0.
 
 raster: the tile kernel (K1) and the blocks kernel (K2) draw that frame, K1
 from the packed path's tables (`pack_scene`, `unpack_layers`), K2 from the
@@ -25,6 +26,19 @@ through compose once, the arguments of every slab's `render_tiles_blocks`
 call noted, and each replayed: CUDA events around the build (median of 30)
 and the profiler's device time (every device event of the build, and this
 repository's kernel among them). One JSON object a slab.
+
+compose: the compose kernel's (K3's) device time by op kind, the port's
+counterpart of the reference's `tools/compose_probe.py`. The frame is
+prepared through compose (`prepare_compose_dispatch`, `frame_tails`) and K3
+launched over the plan's op list filtered to one kind: none (the background
+and the quantize alone), imgs (the chrome layers), slabs (the scroll
+windows' crops), dyn (the volatile tails) and all. Each variant: CUDA events
+around the wrapper (median of 50) and the kernel alone (the profiler). One
+JSON object a variant. The reference took the slope between two lengths of
+a jitted scan, which rests on XLA removing the work of the ops left out;
+here the ops left out are simply not in the launch. The deltas between
+variants are not additive: the full list overlaps one op's loads with the
+blend of another.
 
 The package under `--root` (default: the checkout this file lies in) is
 timed with this checkout's harness (`chip_smoke.py`'s repository and timing
@@ -135,12 +149,56 @@ def slabs(smoke, torch, renderer, scene) -> list:
     return rows
 
 
-def main() -> int:
+# Op kinds of each compose variant.
+COMPOSE_VARIANTS = (("none", ()), ("imgs", ("img",)), ("slabs", ("slab",)),
+                    ("dyn", ("dyn", "dyni")),
+                    ("all", ("img", "slab", "dyn", "dyni")))
+
+
+def compose(smoke, torch, renderer, scene) -> list:
+    from whisper_git_tpu_torch.render import compose as C
+    from whisper_git_tpu_torch.render import compose_kernel as CK
+
+    CK.build()
+    font, atlas = renderer.font_tex_device(), renderer.image_atlas_device()
+    prepared = C.prepare_compose_dispatch(scene, font, atlas)
+    if prepared is None:
+        sys.exit("kernel_times: compose declined the frame")
+    args, st = prepared
+    starts, dyns, kops = C.frame_tails(
+        args[0], font, atlas, st["height"], st["width"], st["tiles_y"],
+        st["tiles_x"], st["meta"])
+    pos = (starts, tuple(args[1]), tuple(args[2]), dyns)
+    kw = dict(tiles_y=st["tiles_y"], tiles_x=st["tiles_x"],
+              background=st["background"], height=st["height"],
+              width=st["width"], rows=st.get("rows"))
+    rows = []
+    for name, kinds in COMPOSE_VARIANTS:
+        ops = tuple(op for op in kops if op[0] in kinds)
+
+        def blend(ops=ops):
+            return CK.compose_tiles(*pos, ops=ops, **kw)
+
+        kernel_ms, _, events = smoke.device_ms(blend)
+        rows.append({"variant": name, "ops": [op[0] for op in ops],
+                     "events_ms": round(smoke.event_ms(blend, 50), 6),
+                     "alone_ms": round(kernel_ms, 6),
+                     "device_events": events})
+    return rows
+
+
+MODES = {"raster": raster, "slabs": slabs, "compose": compose}
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("raster", "slabs"))
+    ap.add_argument("kernel", choices=tuple(MODES))
     ap.add_argument("--root", default=CHECKOUT,
                     help="checkout whose package to time")
-    args = ap.parse_args()
+    ap.add_argument("--repo", default=None,
+                    help="the history repository to open (default: made "
+                    "afresh by chip_smoke.build_history_repo)")
+    args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(CHECKOUT, "chip_smoke.py"))
@@ -174,14 +232,13 @@ def main() -> int:
     for var in ("WGIT_DEVICE", "WGIT_FRAME_CACHE", "WGIT_FRAME_COMPOSE"):
         os.environ.pop(var, None)
     try:
-        repo = smoke.build_history_repo(work)
+        repo = args.repo or smoke.build_history_repo(work)
         freeze_pulse(1.0)
         renderer = Renderer(torch.device("cuda"))
         app = open_app([repo])
         app.current().history_scroll = 0.0
         scene = compile_frame(app, renderer, *smoke.VIEWPORT)
-        timed = raster if args.kernel == "raster" else slabs
-        for row in timed(smoke, torch, renderer, scene):
+        for row in MODES[args.kernel](smoke, torch, renderer, scene):
             print(json.dumps({"card": card, "root": root, **row}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
