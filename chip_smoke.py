@@ -141,13 +141,49 @@ each fatal on failure:
               and alone after a flush of the L2 beside the whole one, and
               its bound over its own entries and bytes (it fails if one
               reads faster); the steady composed frame on one device and
-              under both
-              meshes. Over several real cards where there are; logged as not
-              run on one
+              under both meshes
   16. tools   `tools/vector_smoke.py` on the card (both seams within 2 u8),
               `tools/kernel_times.py compose` (K3 by op kind), and
               `tools/soak.py --secs 15`, the CLI on a pty, which must pass
               its gates
+  17. cards   the render mesh over the machine's real cards, as a user's
+              process takes it (WGIT_MESH unset); on one card logged as
+              "not run (1 card)". Each kernel on a slice of the history
+              view on each card against its plain version there, the slices
+              put together torch.equal to one card's frame, and each
+              kernel's first launch on each card timed (its module load);
+              `Renderer("cuda")` installs the (1, n) mesh over cuda:0 ..
+              cuda:n-1, `Renderer("cuda:1")` the same cards from cuda:1,
+              WGIT_MESH=2 (where n >= 4) two cards; under the auto mesh,
+              from empty caches, every frame torch.equal to one card's: the
+              history view at 1280x800 through compose over phase 4's 57
+              integer offsets (K3 once a frame on each card that holds a
+              frame row, K2 only on plan builds, on the cards that hold the
+              built layer's rows) and through the frame cache over those
+              and the fractional sweep (K2 once a frame a card), the
+              512x320 volatile image of phase 15, and the packed and the
+              5120x2880 oversized frames, one K1 launch on cuda:0 and none
+              elsewhere; `render_batch_sharded` over 1 x n and 2 x n/2
+              meshes of the cards against one K1 launch a frame; the bytes
+              a frame copies between cards (replicas, layer commits,
+              gather) from empty caches and steady, where it fails if a
+              steady composed or frame-cache frame copies an atlas, a
+              cached layer or a cached chrome table; the profiler over
+              every card (device time a frame by card, K3 launches that
+              overlap another card's); the steady composed and frame-cache
+              frames and the worst plan-rebuild frame on one card, under
+              the auto mesh and on 2 cards, in two turns, each frame's
+              synchronize of cuda:0 leaving no work on another card; and
+              `--screenshot` with WGIT_MESH unset byte-equal to
+              WGIT_MESH=0's, the app on a pty to its first frame and a
+              clean exit, and the bench, whose line must name the mesh and
+              every card's device time and busy share (none over 1)
+
+Phases 1-16 run on one card on any machine: `main` sets WGIT_MESH=0 before
+the first Renderer, and the CLI, bench and soak processes inherit it.
+`python3 chip_smoke.py --only cards` runs the build, the history fixture
+and phase 17 alone (no kernels line): the quick way to look at a machine
+with several cards.
 
 The process refuses every connection to another host (`refuse_network`):
 with avatars on, a fetch fails as it would with no network. It refuses
@@ -186,8 +222,9 @@ operations a pixel a blended i16 layer, 7 an f32 one, and the inline tails'
 bin entries as above. The script fails if a kernel reads faster than its
 bound.
 
-Prints the card's line, a JSON line of kernel results, and last
-{"ok": true, "device": {...}}. Exits non-zero, printing no result, on any
+Prints each card's launches on the main paths (phases 1-16 on cuda:0,
+phase 17's mesh paths on every card) as a JSON line, the card's line, a
+JSON line of kernel results, and last {"ok": true, "device": {...}}. Exits non-zero, printing no result, on any
 failure.
 """
 
@@ -491,8 +528,14 @@ def host_us(fn, runs: int = 200, batches: int = 1) -> float:
     return best / runs * 1e6
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import torch
+
+    only = None
+    if argv:
+        if argv != ["--only", "cards"]:
+            fail(f"usage: chip_smoke.py [--only cards], not {argv}")
+        only = "cards"
 
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -521,16 +564,25 @@ def main() -> int:
     for var in ("JAX_PLATFORMS", "WGIT_DEVICE", "WGIT_FRAME_CACHE",
                 "WGIT_FRAME_COMPOSE"):
         os.environ.pop(var, None)
+    # Phases 1-16 on one card whatever the machine holds: without this the
+    # first Renderer would install a mesh over every card (the auto mesh),
+    # and so would the CLI, bench and soak processes, which inherit it.
+    # Phase 17 unsets it where it drives the auto mesh.
+    os.environ["WGIT_MESH"] = "0"
     refuse_network()
     try:
-        kernels = run_phases(torch, card, kind, work)
+        kernels, by_card = run_phases(torch, card, kind, work, only)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     for mod in sorted(sys.modules):
         if mod.partition(".")[0] in REFUSED:
             fail(f"{mod} was imported")
+    print(json.dumps({"launches_by_card": by_card}), flush=True)
     print(card, flush=True)
+    if only is not None:
+        print(json.dumps({"ok": True, "only": only}), flush=True)
+        return 0
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -538,7 +590,11 @@ def main() -> int:
     return 0
 
 
-def run_phases(torch, card: str, kind: str, work: str) -> list:
+def run_phases(torch, card: str, kind: str, work: str,
+               only: str | None = None) -> tuple[list, dict]:
+    """Phases 2-17 → the kernels line's rows and each card's launches
+    ({card: {kernel: launches}}). With `only` "cards": the build, the
+    history fixture and phase 17 alone (no kernels line)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from whisper_git_tpu_torch.app.views.widgets import freeze_pulse
@@ -639,6 +695,76 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
         if mx > (0 if kind_s in ("shapes", "empty") else 1):
             fail(f"K2 disagrees with its plain version on {label}")
 
+    def k3_both(pos, kw):
+        return both(lambda *a: CK.compose_tiles(*a, **kw),
+                    lambda *a: CK.compose_tiles_plain(*a, **kw), pos)
+
+    def compare_k3(label, k, p, shape):
+        above = int((k.int() - p.int()).abs().gt(0).sum().item()) \
+            if k.shape == p.shape else -1
+        compare("K3", f"{label} ({above} values above 0)", "shapes", k, p,
+                shape, torch.uint8)
+        if not bool((k[..., 3] == 255).all()):
+            fail(f"K3 {label}: the frame is not opaque")
+
+    # The history view's fixture (phases 4-17): the bench's repository
+    # opened in the app, and the helpers that compile and take a path.
+    repo = build_history_repo(work)
+    app = open_app([repo])
+    tab = app.current()
+    if tab is None or len(tab.commits) < 200:
+        fail("history fixture did not open")
+    W, H = VIEWPORT
+    image_atlas = renderer.image_atlas_device()
+    path_env = {"packed": {"WGIT_FRAME_CACHE": "0"},
+                "cache": {"WGIT_FRAME_COMPOSE": "0"},
+                "compose": {}}
+
+    def take_path(path: str):
+        for var in ("WGIT_FRAME_CACHE", "WGIT_FRAME_COMPOSE"):
+            os.environ.pop(var, None)
+        os.environ.update(path_env[path])
+
+    def counts():
+        return (K.render_tiles.launches, B.render_tiles_blocks.launches,
+                CK.compose_tiles.launches)
+
+    def layer_caches():
+        return ({k: v[0].data_ptr() for k, v in C._GROUP_CACHE.items()},
+                {k: (v["y0s"], v["img"].data_ptr())
+                 for k, v in C._SLAB_CACHE.items()})
+
+    def rendered(before: dict, after: dict) -> int:
+        return sum(1 for k, v in after.items() if before.get(k) != v)
+
+    def compile_at(off: float, size=VIEWPORT):
+        tab.history_scroll = float(off)
+        return compile_frame(app, renderer, *size)
+
+    def k3_inputs(scene, atlas=None):
+        """→ (starts, images, slabs, dyns), keywords, blob bytes, the
+        plan's descriptor rows."""
+        atlas = image_atlas if atlas is None else atlas
+        args, st = C.prepare_compose_dispatch(scene, font, atlas)
+        starts, dyns, kops = C.frame_tails(
+            args[0], font, atlas, st["height"], st["width"],
+            st["tiles_y"], st["tiles_x"], st["meta"])
+        kw = dict(ops=kops, tiles_y=st["tiles_y"], tiles_x=st["tiles_x"],
+                  background=st["background"], height=st["height"],
+                  width=st["width"])
+        return ((starts, tuple(args[1]), tuple(args[2]), dyns), kw,
+                args[0].numel() * args[0].element_size(), st["rows"])
+
+    helpers = SimpleNamespace(
+        k1_inputs=k1_inputs, k2_inputs=k2_inputs, k3_inputs=k3_inputs,
+        both=both, compare=compare, compare_k3=compare_k3, k3_both=k3_both,
+        take_path=take_path, counts=counts, compile_at=compile_at)
+    if only == "cards":
+        freeze_pulse(1.0)
+        launched, by_card = run_cards_phase(torch, card, work, repo,
+                                            renderer, helpers)
+        return [], by_card
+
     log(f"phase 3 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 3. each kernel against its plain version ----------------------------
     n_modes, i16_apart = 0, []
@@ -711,18 +837,6 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
              "around two windows, with a volatile tail")
 
     # K3 against its plain version on seeded op lists of every op kind.
-    def k3_both(pos, kw):
-        return both(lambda *a: CK.compose_tiles(*a, **kw),
-                    lambda *a: CK.compose_tiles_plain(*a, **kw), pos)
-
-    def compare_k3(label, k, p, shape):
-        above = int((k.int() - p.int()).abs().gt(0).sum().item()) \
-            if k.shape == p.shape else -1
-        compare("K3", f"{label} ({above} values above 0)", "shapes", k, p,
-                shape, torch.uint8)
-        if not bool((k[..., 3] == 255).all()):
-            fail(f"K3 {label}: the frame is not opaque")
-
     kinds_seen = set()
     for cw, ch in (COMPOSE_SYNTH_SIZE, COMPOSE_SYNTH_ODD):
         for case in COMPOSE_CASES:
@@ -778,7 +892,6 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
 
     log(f"phase 4 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 4. the slice end to end, three paths --------------------------------
-    repo = build_history_repo(work)
     # The dirty dot pulses with the clock; pinned, two passes over the same
     # offsets compile the same scenes and their frames can be held equal.
     freeze_pulse(1.0)
@@ -788,37 +901,7 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     # a frame). A fresh process on this view starts without them.
     F._DYN_HW.clear()
     F._WR_HW.clear()
-    app = open_app([repo])
-    tab = app.current()
-    if tab is None or len(tab.commits) < 200:
-        fail("history fixture did not open")
-    W, H = VIEWPORT
     offsets = SCROLL_OFFSETS + SWEEP
-    image_atlas = renderer.image_atlas_device()
-    path_env = {"packed": {"WGIT_FRAME_CACHE": "0"},
-                "cache": {"WGIT_FRAME_COMPOSE": "0"},
-                "compose": {}}
-
-    def take_path(path: str):
-        for var in ("WGIT_FRAME_CACHE", "WGIT_FRAME_COMPOSE"):
-            os.environ.pop(var, None)
-        os.environ.update(path_env[path])
-
-    def counts():
-        return (K.render_tiles.launches, B.render_tiles_blocks.launches,
-                CK.compose_tiles.launches)
-
-    def layer_caches():
-        return ({k: v[0].data_ptr() for k, v in C._GROUP_CACHE.items()},
-                {k: (v["y0s"], v["img"].data_ptr())
-                 for k, v in C._SLAB_CACHE.items()})
-
-    def rendered(before: dict, after: dict) -> int:
-        return sum(1 for k, v in after.items() if before.get(k) != v)
-
-    def compile_at(off: float):
-        tab.history_scroll = float(off)
-        return compile_frame(app, renderer, W, H)
 
     def drive(path: str, offs, keep_frames=(), keep_scenes=()):
         """One pass over `offs` through render_scene_device from empty
@@ -998,20 +1081,6 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
              "frame")
     log("slice: offset 63.9 under the default: compose declined, the frame "
         "is torch.equal to the frame cache's, no K3 launch")
-
-    def k3_inputs(scene, atlas=None):
-        """→ (starts, images, slabs, dyns), keywords, blob bytes, the
-        plan's descriptor rows."""
-        atlas = image_atlas if atlas is None else atlas
-        args, st = C.prepare_compose_dispatch(scene, font, atlas)
-        starts, dyns, kops = C.frame_tails(
-            args[0], font, atlas, st["height"], st["width"],
-            st["tiles_y"], st["tiles_x"], st["meta"])
-        kw = dict(ops=kops, tiles_y=st["tiles_y"], tiles_x=st["tiles_x"],
-                  background=st["background"], height=st["height"],
-                  width=st["width"])
-        return ((starts, tuple(args[1]), tuple(args[2]), dyns), kw,
-                args[0].numel() * args[0].element_size(), st["rows"])
 
     for off in COMPOSE_PLAIN_OFFSETS:
         scene = composed["scenes"][off]
@@ -1584,26 +1653,32 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
 
     log(f"phase 12-14 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 12-14. the EDT, the goldens, avatars -------------------------------
-    asset_launches = run_asset_phases(torch, card, work, renderer, SimpleNamespace(
-        k1_inputs=k1_inputs, k2_inputs=k2_inputs, k3_inputs=k3_inputs,
-        both=both, compare=compare, compare_k3=compare_k3, k3_both=k3_both,
-        take_path=take_path, counts=counts))
+    asset_launches = run_asset_phases(torch, card, work, renderer, helpers)
     for name, n in asset_launches.items():
         slice_launches[name] += n
 
     log(f"phase 15 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 15. mesh -------------------------------------------------------------
-    mesh_launches = run_mesh_phase(torch, card, renderer, SimpleNamespace(
-        k1_inputs=k1_inputs, k2_inputs=k2_inputs, k3_inputs=k3_inputs,
-        both=both, compare=compare, compare_k3=compare_k3, k3_both=k3_both,
-        take_path=take_path, counts=counts, compile_at=compile_at))
+    mesh_launches = run_mesh_phase(torch, card, renderer, helpers)
     for name, n in mesh_launches.items():
         slice_launches[name] += n
 
     log(f"phase 16 starts at {time.perf_counter() - T_START:.1f} s")
     # ---- 16. tools ------------------------------------------------------------
     run_tools_phase(torch, card, work, repo)
-    log(f"phase 16 done, {time.perf_counter() - T_START:.1f} s")
+
+    log(f"phase 17 starts at {time.perf_counter() - T_START:.1f} s")
+    # ---- 17. cards -------------------------------------------------------------
+    # Phases 1-16 ran on the current card (WGIT_MESH=0): their launches
+    # are card 0's.
+    cards_launches, by_card = run_cards_phase(torch, card, work, repo,
+                                              renderer, helpers)
+    own = by_card.setdefault(str(torch.device("cuda", 0)),
+                             dict.fromkeys(slice_launches, 0))
+    for name, n in cards_launches.items():
+        own[name] += slice_launches[name]
+        slice_launches[name] += n
+    log(f"phase 17 done, {time.perf_counter() - T_START:.1f} s")
 
     def row(name, stem, replaces, bound):
         return {"name": stem, "route": "cuda",
@@ -1622,7 +1697,7 @@ def run_phases(torch, card: str, kind: str, work: str) -> list:
     for r, name in zip(kernels, ("K1", "K2", "K3")):
         if min(r["ms"], min(alone[name])) < r["bound_ms"]:
             fail(f"{r['name']} reads faster than its bound: {r}")
-    return kernels
+    return kernels, by_card
 
 
 def run_host_phases(torch, card: str, work: str, repo: str, frame) -> None:
@@ -1888,6 +1963,78 @@ def run_host_phases(torch, card: str, work: str, repo: str, frame) -> None:
         "and to intra_line_highlight")
 
 
+# Helpers of the mesh phases (15 and 17).
+
+def volatile_image_scene(renderer, _off):
+    """A 512x320 scene (5 tile rows, padded to 8 over 8 shards: 3 pad
+    rows) holding a volatile image, so compose pre-renders a "dyn" tail
+    for K3."""
+    import numpy as np
+
+    from whisper_git_tpu_torch.ui import image, rect, row, spacer, stack
+    from whisper_git_tpu_torch.ui.theme import DARK
+
+    tile = np.zeros((16, 16, 4), np.uint8)
+    tile[:, :, 0] = 220
+    tile[:, :, 3] = 255
+    ui = stack(rect(width="fill", height="fill", fill=DARK.background),
+               row(spacer(300), image(tile, width=16, height=16,
+                                      volatile=True),
+                   width="fill", height=60),
+               width="fill", height="fill")
+    root = renderer.layout(ui, (512, 320))
+    return renderer.compile(root, (512, 320), DARK.background)
+
+
+def pad_bins(torch, layer_data, T: int, T_pad: int) -> tuple:
+    """K1's layer tables with their bins padded from T to T_pad rows of
+    -1 (tiles past the frame: the bare background)."""
+    return tuple(tuple(t if i < 7 else torch.cat(
+        [t, torch.full((T_pad - T, t.shape[1]), -1, dtype=t.dtype,
+                       device=t.device)]) for i, t in enumerate(layer))
+        for layer in layer_data)
+
+
+def assemble_tiles(K, t, ty: int, tx: int, H: int, W: int):
+    """K1's f32 canvas of the frame's first ty * tx tiles → the quantized
+    (H, W, 4) u8 frame, as one launch without a slice writes it."""
+    img = t[:ty * tx].reshape(ty, tx, 64, 128, 4).permute(0, 2, 1, 3, 4)
+    return K.quantize_u8(img.reshape(ty * 64, tx * 128, 4)[:H, :W])
+
+
+def stack_frames(torch, frames, T: int, T_pad: int) -> tuple:
+    """K1's inputs of several frames (`k1_inputs`' tuples) as
+    `render_batch_sharded` takes them: each table with a leading frame
+    axis, zero rows past a frame's own, bins padded to T_pad tiles with
+    -1; → (batched layer data, the layers' joint signature)."""
+    dev = frames[0][1].device
+    n_layers = max(len(f[6]) for f in frames)
+    sig = tuple(tuple(any(f[6][li][c] for f in frames if li < len(f[6]))
+                      for c in range(3)) for li in range(n_layers))
+
+    def stacked(li, i):
+        ts = [f[0][li][i] if li < len(f[0]) else None for f in frames]
+        if i >= 7:
+            k = max([t.shape[1] for t in ts if t is not None] + [1])
+            out = torch.full((len(ts), T_pad, k), -1, dtype=torch.int32,
+                             device=dev)
+            for b, t in enumerate(ts):
+                if t is not None:
+                    out[b, :T, :t.shape[1]] = t
+            return out
+        cols = (16, 4, 8, 4, 4, 8, 4)[i]
+        n = max([t.shape[0] for t in ts if t is not None] + [1])
+        out = torch.zeros((len(ts), n, cols), device=dev)
+        for b, t in enumerate(ts):
+            if t is not None:
+                out[b, :t.shape[0]] = t
+        return out
+
+    return tuple(tuple(stacked(li, i) for i in range(10))
+                 for li in range(n_layers)), sig
+
+
+
 # The mesh phase: three steady scroll frames, and meshes of one card given
 # several times (dp, sp).
 MESH_OFFSETS = (0.0, 16.0, 32.0)
@@ -1901,8 +2048,6 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
     counterpart of the reference's `dryrun_multichip`. `h` holds
     run_phases' helpers. → each kernel's launches on the mesh's frame
     paths and the batched sweep."""
-    import numpy as np
-
     from whisper_git_tpu_torch.parallel import mesh as PM
     from whisper_git_tpu_torch.render import blocks_kernel as B
     from whisper_git_tpu_torch.render import compose as C
@@ -1912,8 +2057,6 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
     from whisper_git_tpu_torch.render.meshstate import set_render_mesh
     from whisper_git_tpu_torch.render.rasterizer import render_scene_device
     from whisper_git_tpu_torch.tools.fixtures import steady_window_scene
-    from whisper_git_tpu_torch.ui import image, rect, row, spacer, stack
-    from whisper_git_tpu_torch.ui.theme import DARK
 
     dev = renderer.device
     font = renderer.font_tex_device()
@@ -1950,20 +2093,8 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
         want_k2.append(holding(a[4], mesh, k.get("tile_rect")))
         return real_sharded(*a, **k)
 
-    tile = np.zeros((16, 16, 4), np.uint8)
-    tile[:, :, 0] = 220
-    tile[:, :, 3] = 255
-
-    def volatile_scene(_off):
-        # 320 px: 5 tile rows, padded to 8 over 8 shards (3 pad rows); a
-        # volatile image, so compose pre-renders a "dyn" tail for K3.
-        ui = stack(rect(width="fill", height="fill", fill=DARK.background),
-                   row(spacer(300),
-                       image(tile, width=16, height=16, volatile=True),
-                       width="fill", height=60),
-                   width="fill", height="fill")
-        root = renderer.layout(ui, (512, 320))
-        return renderer.compile(root, (512, 320), DARK.background)
+    def volatile_scene(off):
+        return volatile_image_scene(renderer, off)
 
     scene_sets = (
         (f"steady window {W}x{H}", lambda off: steady_window_scene(
@@ -2104,10 +2235,7 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
     T = ty * tx
     sp = mesh8.shape["sp"]
     T_pad = -(-T // sp) * sp
-    padded = tuple(tuple(t if i < 7 else torch.cat(
-        [t, torch.full((T_pad - T, t.shape[1]), -1, dtype=t.dtype,
-                       device=t.device)]) for i, t in enumerate(layer))
-        for layer in args1[0])
+    padded = pad_bins(torch, args1[0], T, T_pad)
     local = T_pad // sp
     tiles = []
     for j in range(sp):
@@ -2124,8 +2252,7 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
     whole1 = K.render_tiles(*args1)
 
     def assemble(t):
-        img = t[:T].reshape(ty, tx, 64, 128, 4).permute(0, 2, 1, 3, 4)
-        return K.quantize_u8(img.reshape(ty * 64, tx * 128, 4)[:H, :W])
+        return assemble_tiles(K, t, ty, tx, H, W)
 
     if not torch.equal(assemble(torch.cat(tiles)), whole1):
         fail("K1's slices, quantized, are not the whole frame")
@@ -2133,30 +2260,7 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
     # The batched dp x sp sweep: 4 frames over the 2 x 4 mesh.
     frames = [h.k1_inputs(h.compile_at(off), atlas)
               for off in (0.0, 16.0, 32.0, 48.0)]
-    n_layers = max(len(f[6]) for f in frames)
-    sig = tuple(tuple(any(f[6][li][c] for f in frames if li < len(f[6]))
-                      for c in range(3)) for li in range(n_layers))
-
-    def stacked(li, i):
-        ts = [f[0][li][i] if li < len(f[0]) else None for f in frames]
-        if i >= 7:
-            k = max([t.shape[1] for t in ts if t is not None] + [1])
-            out = torch.full((len(ts), T_pad, k), -1, dtype=torch.int32,
-                             device=dev)
-            for b, t in enumerate(ts):
-                if t is not None:
-                    out[b, :T, :t.shape[1]] = t
-            return out
-        cols = (16, 4, 8, 4, 4, 8, 4)[i]
-        n = max([t.shape[0] for t in ts if t is not None] + [1])
-        out = torch.zeros((len(ts), n, cols), device=dev)
-        for b, t in enumerate(ts):
-            if t is not None:
-                out[b, :t.shape[0]] = t
-        return out
-
-    batched = tuple(tuple(stacked(li, i) for i in range(10))
-                    for li in range(n_layers))
+    batched, sig = stack_frames(torch, frames, T, T_pad)
     zero()
     batch = PM.render_batch_sharded(batched, font, atlas, args1[3], ty, tx,
                                     sig, mesh8)
@@ -2279,31 +2383,623 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
         + " (on one card a mesh launches K3 once a shard for the same "
         "pixels)")
 
-    n_cards = torch.cuda.device_count()
-    if n_cards >= 2:
-        real = PM.make_mesh(n_cards)
-        h.take_path("compose")
-        scenes = [steady_window_scene(renderer, off, (W, H))
-                  for off in MESH_OFFSETS]
+    return launched
+
+
+# Phase 17: the render mesh over the machine's real cards, as a user's
+# process takes it (WGIT_MESH unset).
+CARDS_TIMED_OFFSETS = MESH_TIMED_OFFSETS       # 20 steady frames
+CARDS_REBUILD_FRAMES = 50                      # a compose scroll, 0-400 px
+CARDS_BATCH_OFFSETS = (0.0, 16.0, 32.0, 48.0)  # render_batch_sharded's B
+
+
+def run_cards_phase(torch, card: str, work: str, repo: str, renderer,
+                    h) -> tuple[dict, dict]:
+    """Phase 17: the render mesh over several real cards. On one card it
+    logs "not run (1 card)" and passes. `h` holds run_phases' helpers;
+    `renderer` is phase 4's, on card 0 with no mesh. → (each kernel's
+    launches on this phase's mesh paths, {card: {kernel: launches}} of
+    them)."""
+    n = torch.cuda.device_count()
+    launched = {"K1": 0, "K2": 0, "K3": 0}
+    by_card: dict = {}
+    if n < 2:
+        log(f"cards: not run ({n} card)")
+        return launched, by_card
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_git_tpu_torch.bench import card_device_us
+    from whisper_git_tpu_torch.parallel import mesh as PM
+    from whisper_git_tpu_torch.render import blocks_kernel as B
+    from whisper_git_tpu_torch.render import compose as C
+    from whisper_git_tpu_torch.render import compose_kernel as CK
+    from whisper_git_tpu_torch.render import frame as F
+    from whisper_git_tpu_torch.render import raster_kernel as K
+    from whisper_git_tpu_torch.render.meshstate import (get_render_mesh,
+                                                        set_render_mesh)
+    from whisper_git_tpu_torch.render.rasterizer import render_scene_device
+    from whisper_git_tpu_torch.render.renderer import Renderer
+    from whisper_git_tpu_torch.tools import ptydrive as PD
+
+    t_phase = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    names = [str(c) for c in cards]
+    W, H = VIEWPORT
+    ty, tx = -(-H // 64), -(-W // 128)
+    font = renderer.font_tex_device()
+    atlas = renderer.image_atlas_device()
+    wrappers = {"K1": K.render_tiles, "K2": B.render_tiles_blocks,
+                "K3": CK.compose_tiles}
+    tag = f"[{card}, {n} cards]"
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+            w.launches_on.clear()
+
+    def per_card() -> list:
+        """(K1, K2, K3) launched on each card since `zero()`."""
+        return [tuple(w.launches_on.get(i, 0) for w in wrappers.values())
+                for i in range(n)]
+
+    def tally():
+        for name, w in wrappers.items():
+            launched[name] += w.launches
+            for i, k in w.launches_on.items():
+                by_card.setdefault(names[i], dict.fromkeys(wrappers, 0))[
+                    name] += k
+
+    def sync_all():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    def clear():
+        # The layer caches key without the mesh, and the tails' high-water
+        # marks are process state: each pass starts from nothing.
         F.clear_caches()
         C.clear_caches()
-        singles = [render_scene_device(sc, font, atlas) for sc in scenes]
-        F.clear_caches()
-        C.clear_caches()
-        set_render_mesh(real)
+        F._DYN_HW.clear()
+        F._WR_HW.clear()
+
+    def shard_rows(tiles_y, mesh) -> list:
+        _, ty_pad = F._sharded_tile_rows(tiles_y, 1, mesh)
+        rows = ty_pad // mesh.size
+        return [(s * rows, rows) for s in range(mesh.size)]
+
+    def holders(tiles_y, mesh, rect=None) -> list:
+        """The card indices of the shards whose slice of tile rows holds a
+        row of the frame (of `rect`)."""
+        lo, hi = (0, tiles_y) if rect is None else (rect[0], rect[2])
+        return [mesh.flat[s].index
+                for s, (r0, k) in enumerate(shard_rows(tiles_y, mesh))
+                if max(r0, lo) < min(r0 + k, hi, tiles_y)]
+
+    def render(scene):
+        return render_scene_device(scene, font, atlas)
+
+    # ---- each kernel on each card, and its first launch there --------------
+    # Before anything else runs on cards 1..n-1: the inputs are copied
+    # there first (the card's context and allocator), then each kernel's
+    # first launch (its module loaded on that card) and a second one are
+    # timed to a synchronize of the card.
+    hist = h.compile_at(0.0)
+    full = PM.make_mesh(n, devices=cards)
+    args1 = h.k1_inputs(hist, atlas)
+    args2 = h.k2_inputs(hist, atlas)
+    C.clear_caches()
+    pos, kw, _, _ = h.k3_inputs(hist, atlas)
+    T = ty * tx
+    T_pad = -(-T // n) * n
+    padded = pad_bins(torch, args1[0], T, T_pad)
+    local = T_pad // n
+    first_ms = {}
+    parts = {"K1": [], "K2": [], "K3": []}
+    for k in list(range(1, n)) + [0]:
+        dev = cards[k]
+        a1 = F.replicate((padded,) + tuple(args1[1:]), dev)
+        a2 = F.replicate(args2, dev)
+        p3 = F.replicate(pos, dev)
+        torch.cuda.synchronize(dev)
+        r0, nr = shard_rows(ty, full)[k]
+        px = max(0, min((r0 + nr) * 64, H) - r0 * 64)
+        sl1 = dict(n_tiles=local, tile0=k * local)
+        sl2 = dict(n_tiles=nr * tx, tile0=r0 * tx)
+        sl3 = dict(kw, n_rows=nr, row0=r0)
+        calls = {
+            "K1": (lambda: K.render_tiles(*a1, **sl1),
+                   lambda: K.render_tiles_plain(*a1, **sl1),
+                   (local, 64, 128, 4), torch.float32),
+            "K2": (lambda: B.render_tiles_blocks(*a2, **sl2),
+                   lambda: B.render_tiles_blocks_plain(*a2, **sl2),
+                   (px, W, 4), torch.uint8),
+            "K3": (lambda: CK.compose_tiles(*p3, **sl3),
+                   lambda: CK.compose_tiles_plain(*p3, **sl3),
+                   (px, W, 4), torch.uint8)}
+        for name, (kern, plain, shape, dtype) in calls.items():
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                out = kern()
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            first_ms[(names[k], name)] = times
+            if out.device != dev:
+                fail(f"cards: {name} on {dev} wrote its output on "
+                     f"{out.device}")
+            want = plain()
+            label = (f"on {dev}, tiles [{k * local}, {(k + 1) * local})"
+                     if name == "K1" else
+                     f"on {dev}, rows [{r0}, {r0 + nr}) of {ty}")
+            if name == "K3":
+                h.compare_k3(f"history view {label}", out, want, shape)
+            else:
+                h.compare(name, f"history view {label}", "glyphs", out,
+                          want, shape, dtype)
+            parts[name].append((k, out))
+    joined = {name: torch.cat([t.to(cards[0]) for _, t in sorted(p)])
+              for name, p in parts.items()}
+    if not torch.equal(assemble_tiles(K, joined["K1"], ty, tx, H, W),
+                       K.render_tiles(*args1)) \
+            or not torch.equal(joined["K2"], B.render_tiles_blocks(*args2)) \
+            or not torch.equal(joined["K3"],
+                               CK.compose_tiles(*pos, **kw)):
+        fail("cards: the slices of the cards put together are not the "
+             "whole frame of one card")
+    log(f"cards: K1, K2 and K3 on a slice of the history view on each of "
+        f"{n} cards against their plain versions on that card, the "
+        "slices put together torch.equal to one card's whole frame")
+    log(f"cards timing {tag}: each kernel's first launch on a card and the "
+        "next one (host clock to a synchronize of that card, ms; cuda:0's "
+        "modules were loaded in phase 3): " + "; ".join(
+            f"{c} " + ", ".join(f"{name} {first_ms[(c, name)][0]:.3f} / "
+                                f"{first_ms[(c, name)][1]:.3f}"
+                                for name in wrappers) for c in names))
+
+    # ---- the auto mesh ---------------------------------------------------------
+    os.environ.pop("WGIT_MESH", None)
+    try:
+        Renderer("cuda")
+        auto = get_render_mesh()
+        if auto is None or auto.shape != {"dp": 1, "sp": n} \
+                or auto.flat != tuple(cards):
+            fail(f"cards: Renderer('cuda') with WGIT_MESH unset installed "
+                 f"{auto}, not (1, {n}) over {names}")
+        Renderer("cuda:1")
+        got = get_render_mesh()
+        if got.flat != tuple(cards[1:] + cards[:1]):
+            fail(f"cards: Renderer('cuda:1') installed {got}")
+        if n >= 4:
+            os.environ["WGIT_MESH"] = "2"
+            Renderer("cuda")
+            got = get_render_mesh()
+            if got is None or got.flat != tuple(cards[:2]):
+                fail(f"cards: WGIT_MESH=2 installed {got}")
+    finally:
+        os.environ["WGIT_MESH"] = "0"
+        set_render_mesh(None)
+    log(f"cards: Renderer('cuda') with WGIT_MESH unset installed {auto}; "
+        "Renderer('cuda:1') the same cards from cuda:1"
+        + ("; WGIT_MESH=2 (1, 2) over cuda:0, cuda:1" if n >= 4 else ""))
+
+    # ---- every frame equal to one card's -----------------------------------
+    noted = []   # the cards each sharded K2 call should launch on
+    real_sharded = F._render_tiles_blocks_sharded
+
+    def noting(*a, **k):
+        mesh = a[8] if len(a) > 8 else k["mesh"]
+        noted.append(holders(a[4], mesh, k.get("tile_rect")))
+        return real_sharded(*a, **k)
+
+    def drive(level, scenes, mesh):
+        """One pass from empty caches → the frames, and a row a frame:
+        (launches on each card, plans built, the noted sharded K2
+        calls)."""
+        h.take_path(level)
+        clear()
+        set_render_mesh(mesh)
+        zero()
+        frames, rows, plans = [], [], {}
         try:
-            got = [render_scene_device(sc, font, atlas) for sc in scenes]
+            for sc in scenes:
+                before = per_card()
+                del noted[:]
+                frames.append(render(sc))
+                after = per_card()
+                built = [p for p in C._PLAN_CACHE.values()
+                         if id(p) not in plans]
+                plans.update((id(p), p) for p in built)
+                rows.append(([tuple(b - a for a, b in zip(x, y))
+                              for x, y in zip(before, after)], len(built),
+                             list(noted)))
+            sync_all()
         finally:
             set_render_mesh(None)
-        if not all(torch.equal(a, b.to(a.device))
-                   for a, b in zip(singles, got)):
-            fail(f"the mesh over {n_cards} cards changed a frame")
-        log(f"mesh: over {n_cards} real cards ({real}): the steady frames "
-            "torch.equal to one card's")
-    else:
-        log(f"mesh: {n_cards} card visible: the mesh over several real "
-            "cards did not run (not a failure)")
-    return launched
+        return frames, rows
+
+    def check(label, level, scenes, ty_, plan_only):
+        singles, _ = drive(level, scenes, None)
+        got, rows = drive(level, scenes, auto)
+        tally()
+        hold = holders(ty_, auto)
+        for i, (a, b) in enumerate(zip(singles, got)):
+            if b.device != a.device or not torch.equal(a, b):
+                mx, _ = diff_stats(a, b.to(a.device))
+                fail(f"cards: {label} {level}, frame {i}: {mx:g} u8 from "
+                     f"one card's (on {b.device})")
+        n_k2 = n_built = 0
+        for i, (pc, built, calls) in enumerate(rows):
+            want_k2 = [0] * n
+            for c in calls:
+                for idx in c:
+                    want_k2[idx] += 1
+            for idx in range(n):
+                want = (0, want_k2[idx],
+                        int(level == "compose" and idx in hold))
+                if pc[idx] != want:
+                    fail(f"cards: {label} {level}, frame {i}: (K1, K2, K3) "
+                         f"on {names[idx]} {pc[idx]}, expected {want}")
+            if level == "cache" and len(calls) != 1:
+                fail(f"cards: {label}: a frame-cache frame made "
+                     f"{len(calls)} sharded K2 calls")
+            if plan_only and calls and not built:
+                fail(f"cards: {label} frame {i}: K2 launched without a "
+                     "plan build")
+            n_k2 += sum(want_k2)
+            n_built += built
+        log(f"cards: {label}, {level}: {len(scenes)} frames under the auto "
+            f"mesh torch.equal to one card's; K3 once a frame on each of "
+            f"{len(hold)} cards that hold a frame row"
+            if level == "compose" else
+            f"cards: {label}, {level}: {len(scenes)} frames under the auto "
+            f"mesh torch.equal to one card's; K2 once a frame on each of "
+            f"{len(hold)} cards that hold a frame row")
+        log(f"cards: {label}, {level}: {n_built} plans built, {n_k2} K2 "
+            "launches over the cards, each where a sharded call's rows "
+            "lie" + (", none without a plan build" if plan_only else ""))
+
+    int_scenes = [h.compile_at(off) for off in COMPOSE_OFFSETS]
+    sweep_scenes = [h.compile_at(off) for off in SWEEP]
+    F._render_tiles_blocks_sharded = noting
+    try:
+        check(f"history view {W}x{H}", "compose", int_scenes, ty, True)
+        check(f"history view {W}x{H}", "cache", int_scenes + sweep_scenes,
+              ty, False)
+        check("volatile image 512x320", "compose",
+              [volatile_image_scene(renderer, off) for off in MESH_OFFSETS],
+              5, False)
+    finally:
+        F._render_tiles_blocks_sharded = real_sharded
+        h.take_path("compose")
+
+    # The packed and the oversized path stay on one card under a mesh.
+    OW, OH = OVERSIZED
+    for label, scene, level in (
+            (f"packed {W}x{H}", hist, "packed"),
+            (f"oversized {OW}x{OH}", h.compile_at(0.0, OVERSIZED),
+             "compose")):
+        h.take_path(level)
+        clear()
+        one = render(scene)
+        clear()
+        set_render_mesh(auto)
+        zero()
+        try:
+            got = render(scene)
+            sync_all()
+        finally:
+            set_render_mesh(None)
+            h.take_path("compose")
+        pc = per_card()
+        tally()
+        if pc[0] != (1, 0, 0) or any(map(any, pc[1:])) \
+                or got.device != cards[0] \
+                or not torch.equal(one, got):
+            fail(f"cards: {label} under the auto mesh: (K1, K2, K3) by card "
+                 f"{pc}, on {got.device}, equal to one card's: "
+                 f"{torch.equal(one, got.to(one.device))}")
+        log(f"cards: {label} under the auto mesh: one K1 launch, on "
+            f"{names[0]}, no launch on another card; torch.equal to one "
+            "card's")
+
+    # ---- render_batch_sharded over real cards ---------------------------------
+    frames = [h.k1_inputs(h.compile_at(off), atlas)
+              for off in CARDS_BATCH_OFFSETS]
+    batched, sig = stack_frames(torch, frames, T, T_pad)
+    wants = [K.render_tiles(*f) for f in frames]
+    for dp in ((1, 2) if n % 2 == 0 else (1,)):
+        mesh = PM.make_mesh(n, dp=dp, devices=cards)
+        zero()
+        batch = PM.render_batch_sharded(batched, font, atlas, args1[3], ty,
+                                        tx, sig, mesh)
+        sync_all()
+        pc = per_card()
+        tally()
+        each = len(frames) // dp
+        if pc != [(each, 0, 0)] * n or batch.device != cards[0]:
+            fail(f"render_batch_sharded over {mesh}: (K1, K2, K3) by card "
+                 f"{pc}, on {batch.device}")
+        for b, want in enumerate(wants):
+            if not torch.equal(assemble_tiles(K, batch[b], ty, tx, H, W),
+                               want):
+                fail(f"render_batch_sharded over {mesh}: frame {b} is not "
+                     "one K1 launch's frame on one card")
+        log(f"cards: render_batch_sharded, B = {len(frames)} history frames "
+            f"over {dp} x {n // dp} cards: {each} K1 launches on each card, "
+            "every frame torch.equal to one K1 launch on one card")
+
+    # ---- bytes between cards ----------------------------------------------------
+    timed = [h.compile_at(off) for off in CARDS_TIMED_OFFSETS]
+    real_move = F.move
+    copied = []
+
+    def recording(t, device, kind):
+        out = real_move(t, device, kind)
+        if out is not t:
+            copied.append((kind, t.data_ptr()))
+        return out
+
+    def moved_mb(scale=1.0):
+        return ", ".join(f"{k} {v / scale / 1e6:.4f} MB"
+                         for k, v in F.MOVED.items())
+
+    F.move = recording
+    try:
+        for level in ("compose", "cache"):
+            h.take_path(level)
+            clear()
+            set_render_mesh(auto)
+            for k in F.MOVED:
+                F.MOVED[k] = 0
+            render(timed[0])
+            sync_all()
+            first = moved_mb()
+            for sc in timed[1:]:
+                render(sc)
+            sync_all()
+            plans = set(map(id, C._PLAN_CACHE.values()))
+            for k in F.MOVED:
+                F.MOVED[k] = 0
+            del copied[:]
+            for sc in timed:
+                render(sc)
+            sync_all()
+            if set(map(id, C._PLAN_CACHE.values())) != plans:
+                fail(f"cards: {level}: a warm frame built a plan")
+            kept = {font.data_ptr(): "the font texture",
+                    atlas.data_ptr(): "the image atlas"}
+            kept.update((v[0].data_ptr(), "a cached chrome group")
+                        for v in C._GROUP_CACHE.values())
+            kept.update((v["img"].data_ptr(), "a cached slab")
+                        for v in C._SLAB_CACHE.values())
+            for e in F._CHROME_CACHE.values():
+                for t in (*e["parts"], *e["bins"], *e["segs"]):
+                    if isinstance(t, torch.Tensor):
+                        kept[t.data_ptr()] = "a cached chrome table"
+            bad = sorted({kept[p] for _, p in copied if p in kept})
+            if bad or F.MOVED["layers"]:
+                fail(f"cards: a steady {level} frame copied {bad} between "
+                     f"cards ({moved_mb(len(timed))} a frame)")
+            log(f"cards: bytes between cards {tag}, {level}: the first "
+                f"frame from empty caches (a plan build) {first}; a steady "
+                f"frame {moved_mb(len(timed))} ({len(copied)} copies over "
+                f"{len(timed)} frames), no atlas and no cached layer or "
+                "table")
+    finally:
+        F.move = real_move
+        set_render_mesh(None)
+        h.take_path("compose")
+
+    # ---- overlap: a profiler trace over every card --------------------------
+    h.take_path("compose")
+    clear()
+    set_render_mesh(auto)
+    try:
+        for sc in timed:
+            render(sc)
+        sync_all()
+        for _ in range(3):   # a fresh profiler now and then records none
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for sc in timed:
+                    render(sc)
+                sync_all()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            events = prof.events()
+            dev_us = card_device_us(events, names)
+            if sum(dev_us.values()) > 0:
+                break
+        else:
+            fail("cards: the profiler shows no device time")
+    finally:
+        set_render_mesh(None)
+    k3 = [(e.device_index, e.time_range.start, e.time_range.end)
+          for e in events if "CUDA" in str(getattr(e, "device_type", ""))
+          and "compose_tiles" in e.name]
+    overlapping = sum(1 for d, a, b in k3
+                      if any(d2 != d and a2 < b and a < b2
+                             for d2, a2, b2 in k3))
+    log(f"cards: profile {tag}, {len(timed)} steady composed frames under "
+        "the auto mesh: device time a frame by card " + ", ".join(
+            f"{c} {us / len(timed) / 1e3:.4f} ms (busy {us / wall_us:.4f})"
+            for c, us in dev_us.items())
+        + f"; {len(k3)} K3 launches, {overlapping} of them overlapping in "
+        "time a K3 launch on another card")
+
+    # ---- frame times, one card against the meshes, two turns ----------------
+    two = PM.make_mesh(2, devices=cards[:2])
+    configs = [("one card", None), (f"auto 1x{n}", auto)]
+    if n > 2:
+        configs.append(("2 cards", two))
+    rebuild = [h.compile_at(float(int(i * 400 / CARDS_REBUILD_FRAMES)))
+               for i in range(CARDS_REBUILD_FRAMES)]
+
+    def steady_ms(level, mesh):
+        h.take_path(level)
+        clear()
+        set_render_mesh(mesh)
+        try:
+            for sc in timed:
+                render(sc)
+            sync_all()
+            out = []
+            for sc in timed:
+                t0 = time.perf_counter()
+                render(sc)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+                # The synchronize of the current card covers the frame:
+                # the gather made it wait for every other card.
+                idle = [torch.cuda.current_stream(c).query() for c in cards]
+                if not all(idle):
+                    fail(f"cards: a frame synchronized on {names[0]} left "
+                         f"work on {[c for c, i in zip(names, idle) if not i]}")
+            return statistics.median(out)
+        finally:
+            set_render_mesh(None)
+            h.take_path("compose")
+
+    def worst_rebuild_ms(mesh):
+        clear()
+        set_render_mesh(mesh)
+        plans, worst = {}, 0.0
+        try:
+            for i, sc in enumerate(rebuild):
+                t0 = time.perf_counter()
+                render(sc)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                built = [p for p in C._PLAN_CACHE.values()
+                         if id(p) not in plans]
+                plans.update((id(p), p) for p in built)
+                if built and i > 0:
+                    worst = max(worst, ms)
+            return worst
+        finally:
+            set_render_mesh(None)
+
+    times = {name: {"compose": [], "cache": [], "rebuild": []}
+             for name, _ in configs}
+    for _ in range(2):
+        for name, mesh in configs:
+            times[name]["compose"].append(steady_ms("compose", mesh))
+            times[name]["cache"].append(steady_ms("cache", mesh))
+            times[name]["rebuild"].append(worst_rebuild_ms(mesh))
+    for what, text in (("compose", "steady composed frame"),
+                       ("cache", "steady frame-cache frame"),
+                       ("rebuild", "worst plan-rebuild frame of a compose "
+                                   f"scroll over {CARDS_REBUILD_FRAMES} "
+                                   "offsets from empty caches")):
+        log(f"cards timing {tag}: the history view's {text} (render to a "
+            "synchronize, ms, "
+            + ("median of 20 warm frames, " if what != "rebuild" else "")
+            + "two turns): " + "; ".join(
+                f"{name} {v[what][0]:.3f} / {v[what][1]:.3f}"
+                for name, v in times.items()))
+
+    # ---- the CLI, the app and the bench under the auto mesh -----------------
+    # A repository with nothing uncommitted: its dirty dot would pulse with
+    # the clock, and two processes' screenshots could not be held equal.
+    clean = os.path.join(work, "cards-repo")
+    shutil.copytree(repo, clean, symlinks=True)
+    os.remove(os.path.join(clean, "dirty.txt"))
+    env_auto = {k: v for k, v in os.environ.items()
+                if k not in ("WGIT_MESH", "WGIT_FRAME_DUMP", "WGIT_NO_INPUT",
+                             "WGIT_DEVICE")}
+    shots = {}
+    for name, env in (("auto", env_auto), ("off", dict(env_auto,
+                                                       WGIT_MESH="0"))):
+        png = os.path.join(work, f"cards-{name}.png")
+        shots[name] = (png, subprocess.Popen(
+            [sys.executable, "-m", "whisper_git_tpu_torch", "--screenshot",
+             png, "--size", f"{W}x{H}", "--repo", clean, "--device",
+             "cuda"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    try:
+        t_first = run_app_to_first_frame(PD, clean, env_auto)
+        pngs = {}
+        for name, (png, p) in shots.items():
+            _, err = p.communicate(timeout=600)
+            if p.returncode != 0:
+                fail(f"cards: --screenshot with WGIT_MESH {name} exited "
+                     f"{p.returncode}: {err[-2000:]}")
+            with open(png, "rb") as f:
+                pngs[name] = f.read()
+    finally:
+        for _, p in shots.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+    if pngs["auto"] != pngs["off"]:
+        fail("cards: the --screenshot under the auto mesh differs from "
+             "WGIT_MESH=0's")
+    log(f"cards: --screenshot {W}x{H} with WGIT_MESH unset byte-equal to "
+        f"WGIT_MESH=0's ({len(pngs['auto'])} bytes); the app on a pty under "
+        f"the auto mesh: first frame {t_first:.3f} s after the spawn, the "
+        "Escape ladder quit with rc 0, the terminal restored")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "whisper_git_tpu_torch.bench",
+                          "--iters", "40", "--batches", "3"], cwd=ROOT,
+                         env=env_auto, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        fail(f"cards: the bench under the auto mesh exited "
+             f"{res.returncode}: {res.stderr[-3000:]}")
+    row = json.loads(res.stdout.strip().splitlines()[-1])
+    by_ms = row.get("device_ms_per_frame_by_card") or {}
+    by_busy = row.get("device_busy_share_by_card") or {}
+    if row.get("mesh") != names or row.get("device_count") != n \
+            or set(by_ms) != set(names) or set(by_busy) != set(names) \
+            or not all(0 <= v <= 1 for v in by_busy.values()) \
+            or not by_busy[names[0]] > 0 \
+            or not row.get("value", 0) > 0:
+        fail(f"cards: the bench under the auto mesh: {row}")
+    log(f"cards: bench {tag} under the auto mesh "
+        f"({time.perf_counter() - t0:.1f} s): {res.stdout.strip()}")
+    log(f"cards: phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return launched, by_card
+
+
+def run_app_to_first_frame(PD, repo: str, env: dict) -> float:
+    """The app (`python -m whisper_git_tpu_torch <repo>`) on a 100x30 pty
+    under `env`: its first half-block frame, then the Escape ladder, which
+    must quit it with rc 0 and the terminal restored. → seconds from the
+    spawn to the first frame."""
+    t0 = time.monotonic()
+    master, slave = PD.open_sized_pty(30, 100, 800, 480)
+    proc = subprocess.Popen([sys.executable, "-m", "whisper_git_tpu_torch",
+                             repo], stdin=slave, stdout=slave,
+                            stderr=subprocess.PIPE, env=env, cwd=ROOT,
+                            close_fds=True)
+    os.close(slave)
+    buf = bytearray()
+    try:
+        if not PD.wait_for(master, buf, PD.ALT_ENTER, 60) \
+                or not PD.wait_for(master, buf, PD.HALF_BLOCK, 120):
+            fail("the app painted no frame")
+        t_first = time.monotonic() - t0
+        PD.drain(master, buf, 0.5)
+        for _ in range(8):   # the Escape ladder quits
+            os.write(master, b"\x1b")
+            PD.drain(master, buf, 0.35)
+            if proc.poll() is not None:
+                break
+        end = time.monotonic() + 30
+        while proc.poll() is None and time.monotonic() < end:
+            PD.drain(master, buf, 0.25)
+        PD.drain(master, buf, 0.3)
+        if proc.returncode != 0 or PD.ALT_EXIT not in buf:
+            fail(f"the app exited {proc.returncode} (terminal restored: "
+                 f"{PD.ALT_EXIT in buf}): "
+                 f"{proc.stderr.read()[-2000:].decode('utf-8', 'replace')}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stderr.close()
+        os.close(master)
+    return t_first
 
 
 def run_tools_phase(torch, card: str, work: str, repo: str) -> None:
@@ -2813,4 +3509,4 @@ def run_asset_phases(torch, card: str, work: str, renderer, h) -> dict:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

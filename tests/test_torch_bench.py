@@ -32,7 +32,8 @@ FIELDS = {"metric", "value", "unit", "vs_baseline", "median_fps",
           "rebuild_ms_p50", "rebuild_ms_max", "rebuild_frames",
           "oversized_ms", "kernel_build_s",
           "kernels_built", "setup_s", "iters_per_batch", "batches_fps",
-          "device"}
+          "device", "device_count", "mesh", "device_ms_per_frame_by_card",
+          "device_busy_share_by_card"}
 TUNNEL = {"link_warmup_s", "compile_s", "compile_trace_s",
           "compile_cache_hits", "compile_cache_misses"}
 
@@ -74,9 +75,11 @@ def test_bench_on_the_cpu_prints_its_line(tmp_path):
     assert row["rebuild_frames"] >= 1 and row["rebuild_ms_max"] > 0
     # No device on the CPU: its figures are null, no kernel was built.
     for key in ("device_ms_per_frame", "device_fps", "device_busy_share",
-                "oversized_ms"):
+                "device_ms_per_frame_by_card", "device_busy_share_by_card",
+                "oversized_ms", "mesh"):
         assert row[key] is None, key
     assert row["kernels_built"] == 0 and row["kernel_build_s"] == 0.0
+    assert row["device_count"] == 0   # CUDA_VISIBLE_DEVICES is empty
 
 
 def test_bench_cuda_without_a_gpu_fails(tmp_path):

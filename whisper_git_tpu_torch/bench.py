@@ -14,12 +14,26 @@ Beside it: the median batch and every batch, the input→frame latency, the
 input→presented-grid latency and the sustained presented rate through the
 terminal presenter's path (`host/term_display.py`: the downsample on the
 device, the copy into pinned memory, its event), the device's own time a
-steady composed frame (`torch.profiler`) with its busy share, the
+steady composed frame (`torch.profiler`) with its busy share, each card's
+apart, the
 plan-rebuild frames of a compose scroll against the 16.7 ms limit, the
-5120×2880 frame, the kernels' nvcc builds, the set-up time and the card
-(`nvidia-smi`), or "cpu".
+5120×2880 frame, the kernels' nvcc builds, the set-up time, the card
+(`nvidia-smi`), or "cpu", the cards visible (`device_count`) and the
+render mesh the frames ran under (`mesh`: its devices, or null).
 
-Each batch of `--iters` frames ends in a `torch.cuda.synchronize()`. On
+On a machine with several cards the renderer installs a mesh over all of
+them unless WGIT_MESH says otherwise (`render/meshstate.py`), and a
+frame's work spreads over the cards. The device figures are then a card's
+each (`device_ms_per_frame_by_card`, `device_busy_share_by_card`: its own
+device time a frame, and that over the frames' wall time, never above
+1); `device_ms_per_frame` and `device_busy_share` are the busiest card's,
+the one that bounds the device's rate.
+
+Each batch of `--iters` frames ends in a `torch.cuda.synchronize()`, on
+the current card alone. Under a mesh that covers every card's work of the
+batch: a frame's shards end in the gather onto the first card (the
+renderer's), and each copy of the gather makes that card's stream wait for
+the shard's, so the first card finishes last. On
 the CPU (`--device cpu`) the frames run the kernels' plain versions and
 the device figures are null; the sample counts of the latency and
 presented phases are capped at the batches' frame count, so a short run
@@ -146,6 +160,7 @@ def _run(args, torch, device, builds, t_proc, t_setup, tmp) -> int:
     from .host.screenshot_mode import compile_frame
     from .host.term_display import TermDisplay, _downsample
     from .render import compose as C
+    from .render.meshstate import get_render_mesh
     from .render.rasterizer import render_scene_device
     from .render.renderer import get_renderer, kernel_libraries
     from .ui.theme import DARK
@@ -162,9 +177,11 @@ def _run(args, torch, device, builds, t_proc, t_setup, tmp) -> int:
     app = WhisperApp.with_tabs([tab])
     renderer = get_renderer(device)
     card = card_name(device)
+    mesh = get_render_mesh()
+    cards = [str(d) for d in mesh.flat] if mesh is not None else None
     t_setup_done = time.time()
     print(f"# setup {t_setup_done - t_setup:.1f}s | device {card} | "
-          f"{len(tab.commits)} commits", file=sys.stderr)
+          f"mesh {cards} | {len(tab.commits)} commits", file=sys.stderr)
 
     W, H = VIEWPORT
 
@@ -235,12 +252,17 @@ def _run(args, torch, device, builds, t_proc, t_setup, tmp) -> int:
 
     # The device's own time a steady composed frame: every device event
     # of N frames over offsets of one compose plan (warm), from the
-    # profiler, over N; the busy share against the same frames' wall.
-    device_ms = busy_share = None
+    # profiler, over N, a card's each; the busy share against the same
+    # frames' wall.
+    device_ms = busy_share = card_ms = card_busy = None
     if cuda:
-        device_ms, busy_share = _device_time(torch, tab, frame)
-        print(f"# device time {device_ms:.4f} ms a steady composed frame, "
-              f"busy {busy_share:.4f} of the wall", file=sys.stderr)
+        card_ms, card_busy = _device_time(
+            torch, tab, frame,
+            cards or [str(renderer.font_tex_device().device)])
+        device_ms, busy_share = max(card_ms.values()), max(card_busy.values())
+        print(f"# device time a steady composed frame, ms by card "
+              f"{card_ms}, busy share of the wall by card {card_busy}",
+              file=sys.stderr)
 
     # Input→frame latency: one scroll-state change through build, layout,
     # compile and render to a device-complete frame, each frame drained.
@@ -334,6 +356,8 @@ def _run(args, torch, device, builds, t_proc, t_setup, tmp) -> int:
         "device_ms_per_frame": device_ms,
         "device_fps": None if device_ms is None else 1000.0 / device_ms,
         "device_busy_share": busy_share,
+        "device_ms_per_frame_by_card": card_ms,
+        "device_busy_share_by_card": card_busy,
         "presented_fps": presented_fps,
         "present_drop_rate": present_drop_rate,
         "rebuild_ms_p50": _median(rebuild_ms),
@@ -346,15 +370,31 @@ def _run(args, torch, device, builds, t_proc, t_setup, tmp) -> int:
         "iters_per_batch": args.iters,
         "batches_fps": batch_fps,
         "device": card,
+        "device_count": torch.cuda.device_count(),
+        "mesh": cards,
     }))
     return 0
 
 
-def _device_time(torch, tab, frame) -> tuple[float, float]:
-    """(device ms a frame, busy share): the profiler's device events over
-    PROFILED_FRAMES steady composed frames at offsets 0-120 (one compose
-    plan, warmed first), summed and divided by the frames; and that sum
-    over the frames' wall time."""
+def card_device_us(events, cards) -> dict:
+    """Device time in µs on each of `cards` ("cuda:<i>" names), from a
+    profiler's events: the time of every event it recorded on a CUDA
+    device, summed under that device."""
+    out = {c: 0.0 for c in cards}
+    for e in events:
+        if getattr(e, "device_type", None) is not None \
+                and "CUDA" in str(e.device_type):
+            name = f"cuda:{e.device_index}"
+            out[name] = out.get(name, 0.0) + e.self_device_time_total
+    return out
+
+
+def _device_time(torch, tab, frame, cards) -> tuple[dict, dict]:
+    """({card: device ms a frame}, {card: busy share}): the profiler's
+    device events over PROFILED_FRAMES steady composed frames at offsets
+    0-120 (one compose plan, warmed first), summed on each of `cards`
+    (`card_device_us`) and divided by the frames; and each card's sum over
+    the frames' wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     offsets = [float(8 * (i % 16)) for i in range(PROFILED_FRAMES)]
@@ -371,11 +411,10 @@ def _device_time(torch, tab, frame) -> tuple[float, float]:
                 frame()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if getattr(e, "device_type", None) is not None
-                     and "CUDA" in str(e.device_type))
-        if dev_us > 0:
-            return dev_us / len(offsets) / 1e3, dev_us / wall_us
+        dev_us = card_device_us(prof.events(), cards)
+        if sum(dev_us.values()) > 0:
+            return ({c: us / len(offsets) / 1e3 for c, us in dev_us.items()},
+                    {c: us / wall_us for c, us in dev_us.items()})
     raise SystemExit("bench: the profiler recorded no device time")
 
 

@@ -16,7 +16,13 @@ the windowed design, and presents frames either live in the terminal
 Every device dispatch runs on one render thread, on the device the
 caller chose (`device`, default cuda): the scene compile's uploads,
 `render_scene_device`, the presenter's downsample and copy, and the
-kernels' nvcc builds at their first launch.
+kernels' nvcc builds at their first launch. On a machine with several
+cards the renderer shards each frame over all of them
+(`render/meshstate.py`); the thread's current card stays the first, and
+each shard's launch switches to its own card and back
+(`render/raster_kernel.py::launch_on`). The frame is gathered onto the
+renderer's card, where the presenter downsamples it and records its
+copy's event on that card's stream.
 """
 
 from __future__ import annotations

@@ -39,7 +39,8 @@ whatever the slice: a mesh replicates them.
 `render_tiles_blocks` is the entry point. A tensor on the CPU takes
 `render_tiles_blocks_plain`; a CUDA tensor launches the kernel in
 `csrc/raster_blocks.cu` (built with nvcc on first use, loaded with ctypes)
-or raises. `render_tiles_blocks.launches` counts kernel launches.
+or raises. `render_tiles_blocks.launches` counts kernel launches,
+`render_tiles_blocks.launches_on` those on each card.
 
 What bounds the kernel on the card is the step functions' scalar f32
 arithmetic on the pixels a command inks. Its design: work follows ink
@@ -319,7 +320,7 @@ def _launch(layers_blocks, font_tex, image_atlas, background, tiles_y,
     if rc != 0:
         raise RuntimeError("raster_blocks kernel launch failed: "
                            + lib.raster_blocks_error_string(rc).decode())
-    render_tiles_blocks.launches += 1
+    K.count_launch(render_tiles_blocks, device)
     # The tables, bins, bounds and a device array of descriptors were alive
     # up to here; the allocator hands their memory out again only to later
     # work on this stream, which runs after the kernel.
@@ -361,3 +362,4 @@ def render_tiles_blocks(layers_blocks, font_tex: torch.Tensor,
 
 
 render_tiles_blocks.launches = 0
+render_tiles_blocks.launches_on = {}

@@ -122,9 +122,9 @@ def _render_layer(layers_blocks, font_tex, image_atlas, tiles_y: int,
         return render_tiles_blocks(layers_blocks, font_tex, image_atlas,
                                    None, tiles_y, tiles_x, height, width,
                                    **kw)
-    return F._render_tiles_blocks_sharded(
+    return F.move(F._render_tiles_blocks_sharded(
         layers_blocks, font_tex, image_atlas, None, tiles_y, tiles_x,
-        height, width, mesh, **kw).to(font_tex.device)
+        height, width, mesh, **kw), font_tex.device, "gather")
 
 
 def _single_class_blocks(ci: int, block):
@@ -500,7 +500,8 @@ def _memo_stack(kind: str, keys: tuple, arrays, device):
     if mesh is None:
         out = tuple(arrays)
     else:
-        out = tuple(tuple(a.to(dev) for a in arrays) for dev in mesh.flat)
+        out = tuple(tuple(F.move(a, dev, "layers") for a in arrays)
+                    for dev in mesh.flat)
     while len(_STACK_CACHE) > _img_cache_cap(8, device):
         _STACK_CACHE.pop(next(iter(_STACK_CACHE)))
     _STACK_CACHE[key] = out

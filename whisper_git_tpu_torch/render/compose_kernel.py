@@ -35,7 +35,8 @@ slices of a mesh put together along the rows are the frame.
 `compose_tiles` is the entry point. Tensors on the CPU take
 `compose_tiles_plain`; CUDA tensors launch the kernel in
 `csrc/compose_tiles.cu` (built with nvcc on first use, loaded with ctypes)
-or raise. `compose_tiles.launches` counts kernel launches.
+or raise. `compose_tiles.launches` counts kernel launches,
+`compose_tiles.launches_on` those on each card.
 
 What bounds the kernel on the card is bytes: 8 B a pixel of every covered
 layer and slab crop read, 4 B a pixel written. It is short, so it waits for
@@ -397,7 +398,7 @@ def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
     if rc != 0:
         raise RuntimeError("compose_tiles kernel launch failed: "
                            + lib.compose_tiles_error_string(rc).decode())
-    compose_tiles.launches += 1
+    K.count_launch(compose_tiles, device)
     # The layers, tails, starts and a device array of descriptors were
     # alive up to here; the allocator hands their memory out again only to
     # later work on this stream, which runs after the kernel.
@@ -433,3 +434,4 @@ def compose_tiles(starts: torch.Tensor, images: tuple, slabs: tuple,
 
 
 compose_tiles.launches = 0
+compose_tiles.launches_on = {}

@@ -52,6 +52,7 @@ import os
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import rasterizer as R
 from .blocks_kernel import render_tiles_blocks
@@ -652,7 +653,43 @@ def build_blocks(frame_blob: torch.Tensor, chrome_args, win_args,
 # replicated to its device; the slices are gathered onto the first device.
 # ---------------------------------------------------------------------------
 
-_REPLICAS: dict = {}   # (id, version, device) -> (tensor, its copy there)
+# A source tensor's copy on another device, kept while the source lives
+# (the dictionary holds it weakly, by identity) and unchanged (its version
+# counter): the atlases, the cached chrome tables and a plan's layers are
+# copied once a device, and a frame's own tables, which die with the frame,
+# take their copies with them. No capacity to outgrow: a frame that hands
+# over hundreds of fresh tables evicts nothing that lives on.
+_REPLICAS: dict = {}   # device -> {source tensor: (its version, its copy)}
+
+# Bytes the mesh paths copied from one device to another, by what: a
+# frame's inputs replicated to a shard ("replicas"), compose's cached
+# layers committed to every shard once a plan ("layers"), the shards'
+# outputs gathered onto the first device ("gather"). The caller zeroes
+# them; a mesh of one device repeated copies and counts nothing.
+MOVED = {"replicas": 0, "layers": 0, "gather": 0}
+# How much larger than a view its base may be for `replicate` to copy the
+# base (once) and not the view.
+_VIEW_SPAN = 64
+
+
+def move(t: torch.Tensor, device, kind: str) -> torch.Tensor:
+    """`t` on `device`, the bytes of a copy counted under `kind` in
+    `MOVED` (`t` itself where it lies there already)."""
+    out = t.to(device)
+    if out is not t:
+        MOVED[kind] += t.numel() * t.element_size()
+    return out
+
+
+def _replica(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    copies = _REPLICAS.get(device)
+    if copies is None:
+        copies = _REPLICAS[device] = WeakIdKeyDictionary()
+    hit = copies.get(t)
+    if hit is None or hit[0] != t._version:
+        hit = (t._version, move(t, device, "replicas"))
+        copies[t] = hit
+    return hit[1]
 
 
 def replicate(tree, device):
@@ -660,19 +697,24 @@ def replicate(tree, device):
     every tensor on `device`: the tensor itself where it lies there
     already, so a mesh of one device copies nothing. A copy made of a
     tensor is kept while the tensor lives unchanged (the atlases, a plan's
-    layers), so a steady frame uploads it once a device."""
+    layers), so a steady frame uploads it once a device.
+
+    A view (a frame's row of a cached table, the slices of one buffer of
+    a frame's tables) is that view of its base's copy: views taken anew
+    each frame of a tensor that lives on copy nothing, and the views of
+    one buffer copy it once. A view of a base over `_VIEW_SPAN` times its
+    size is copied alone."""
     device = torch.device(device)
     if isinstance(tree, torch.Tensor):
         if tree.device == device:
             return tree
-        key = (id(tree), tree._version, str(device))
-        hit = _REPLICAS.get(key)
-        if hit is None or hit[0] is not tree:
-            while len(_REPLICAS) > 64:
-                _REPLICAS.pop(next(iter(_REPLICAS)))
-            hit = (tree, tree.to(device))
-            _REPLICAS[key] = hit
-        return hit[1]
+        base = tree._base
+        if base is not None and base.dtype == tree.dtype \
+                and base.is_contiguous() and base.storage_offset() == 0 \
+                and base.numel() <= _VIEW_SPAN * max(1, tree.numel()):
+            return _replica(base, device).as_strided(
+                tree.size(), tree.stride(), tree.storage_offset())
+        return _replica(tree, device)
     if isinstance(tree, (tuple, list)):
         return type(tree)(replicate(x, device) for x in tree)
     if isinstance(tree, dict):
@@ -683,7 +725,7 @@ def replicate(tree, device):
 def gather(parts, device) -> torch.Tensor:
     """The shards' outputs, moved to `device` and joined along their first
     axis (rows of a frame or a layer, tiles of a slice)."""
-    return torch.cat([p.to(device) for p in parts])
+    return torch.cat([move(p, device, "gather") for p in parts])
 
 
 def _sharded_tile_rows(tiles_y: int, tiles_x: int, mesh) -> tuple:
@@ -750,7 +792,8 @@ def render_frame_device(scene: Scene, font_tex: torch.Tensor,
             scene.height, scene.width)
     mesh = get_render_mesh()
     if mesh is not None:
-        return _render_tiles_blocks_sharded(*args, mesh).to(device)
+        return move(_render_tiles_blocks_sharded(*args, mesh), device,
+                    "gather")
     return render_tiles_blocks(*args)
 
 
@@ -758,3 +801,4 @@ def clear_caches() -> None:
     _CHROME_CACHE.clear()
     _WIN_PARTS_DEV.clear()
     _WIN_PAIR_DEV.clear()
+    _REPLICAS.clear()

@@ -42,20 +42,26 @@ def get_render_mesh():
 def available_devices(device=None) -> list:
     """The devices a mesh on `device`'s platform may use: every card for a
     CUDA device (the default where there is a card), `CPU_DEVICES` times
-    the CPU for the CPU."""
+    the CPU for the CPU. The cards start at `device`'s own (the current
+    card where it names none) and wrap around, so a mesh over them gathers
+    its frames onto the card its renderer draws on: `cuda:1` of four gives
+    cuda:1, cuda:2, cuda:3, cuda:0."""
     dev = torch.device(device) if device is not None else torch.device(
         "cuda" if torch.cuda.is_available() else "cpu")
     if dev.type == "cuda":
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
+        n = torch.cuda.device_count()
+        first = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        return [torch.device("cuda", (first + i) % n) for i in range(n)]
     return [torch.device("cpu")] * CPU_DEVICES
 
 
 def maybe_auto_mesh(device=None):
     """Install a (1, n) render mesh over the cards of `device`'s platform
-    when more than one is visible. WGIT_MESH=0 disables; WGIT_MESH=<int>
-    forces a device count, n = min(int, available) (the tests' way in on
-    the CPU, where auto mode stays off). → the mesh, or None."""
+    when more than one is visible (`available_devices`: `device`'s card
+    first). WGIT_MESH=0 disables; WGIT_MESH=<int> forces a device count,
+    n = min(int, available) (the tests' way in on the CPU, where auto mode
+    stays off). → the mesh, or None."""
     want = os.environ.get("WGIT_MESH", "auto")
     if want in ("0", "off", "none", ""):
         return None

@@ -18,7 +18,8 @@ result is quantized to (H, W, 4) u8 with clip(x·255 + 0.5).
 `render_tiles` is the entry point. A tensor on the CPU takes
 `render_tiles_plain`; a CUDA tensor launches the kernel in
 `csrc/raster_tiles.cu` (built with nvcc on first use, loaded with ctypes)
-or raises. `render_tiles.launches` counts kernel launches.
+or raises. `render_tiles.launches` counts kernel launches,
+`render_tiles.launches_on` those on each card (by its index).
 
 What bounds the kernel on the card is the step functions' scalar f32
 arithmetic on the pixels a command inks. Its design: a CTA owns a unit of
@@ -497,6 +498,15 @@ def launch_on(device, launch):
         return launch(_current_stream(index))
 
 
+def count_launch(kernel, device) -> None:
+    """One launch of `kernel` (a wrapper) enqueued on `device`: counted in
+    `kernel.launches`, and in `kernel.launches_on` under the card's
+    index."""
+    kernel.launches += 1
+    kernel.launches_on[device.index] = \
+        kernel.launches_on.get(device.index, 0) + 1
+
+
 def _current_stream(index: int) -> int:
     # The stream's handle without a Stream object around it, where this
     # PyTorch has the call: a launch's host time counts on a short kernel.
@@ -607,7 +617,7 @@ def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
     if rc != 0:
         raise RuntimeError("raster_tiles kernel launch failed: "
                            + lib.raster_tiles_error_string(rc).decode())
-    render_tiles.launches += 1
+    count_launch(render_tiles, device)
     return out
 
 
@@ -645,3 +655,4 @@ def render_tiles(layer_data, font_tex: torch.Tensor,
 
 
 render_tiles.launches = 0
+render_tiles.launches_on = {}
