@@ -1,0 +1,7 @@
+"""K2's share of its roofline over the window (`counts.py`), in %."""
+
+from . import roofline
+
+
+def read(ctx):
+    return roofline(ctx, "K2")
