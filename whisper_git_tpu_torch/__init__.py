@@ -22,6 +22,8 @@ written for PyTorch and CUDA:
   host/                    the interactive terminal loop and its
                            presenter, the headless screenshot CLI
   ledger.py                the cache ledger the loop dumps
+  tracing.py               spans and counters of the frame path
+                           (WGIT_TRACE writes them from the loop)
   bench.py                 the history-view frame bench
   csrc/                    CUDA C++ sources, built at first CUDA launch
 

@@ -57,6 +57,7 @@ from ..gitcore.diff import commit_diff, file_in_commit_diff, working_file_diff
 from ..gitcore.hunk import discard_hunk, stage_hunk, unstage_hunk
 from ..gitcore.repo import GitRepo
 from ..services.config import Config
+from ..tracing import COUNTERS, span
 from ..ui import El, column, rect, row, stack, text
 from ..ui.theme import DARK as T
 from .palette import PaletteState, build_commands
@@ -216,7 +217,8 @@ class WhisperApp:
             if not tab.initial_refresh_done and tab.state_refresh_rx is None:
                 tab.trigger_state_refresh(self.proxy)
                 tab.trigger_status_refresh(self.proxy)
-        self.poll_async_ops()
+        with span("poll"):
+            self.poll_async_ops()
 
     def build(self, viewport: tuple[float, float]) -> El:
         self._last_viewport = viewport
@@ -363,7 +365,8 @@ class WhisperApp:
         tab = self.current()
         handler = getattr(self, f"_act_{head.replace('-', '_')}", None)
         if handler is not None:
-            handler(arg, x, y)
+            with span("input"):
+                handler(arg, x, y)
             return
         # Fallthrough actions that need a tab.
         if tab is None:
@@ -2239,7 +2242,9 @@ class WhisperApp:
             tab.last_fingerprint_check = now
             try:
                 from ..gitcore.repo import ref_fingerprint
-                fp = ref_fingerprint(tab.repo.git_dir, tab.repo.common_dir)
+                with span("fingerprint"):
+                    fp = ref_fingerprint(tab.repo.git_dir,
+                                         tab.repo.common_dir)
             except Exception:
                 return
             if tab.last_fingerprint and fp != tab.last_fingerprint:
@@ -2293,14 +2298,16 @@ class WhisperApp:
         rx: queue.Queue = queue.Queue(maxsize=1)
 
         def worker():
-            try:
-                stats = tab.repo.diff_stats_for_commits(need)
-            except Exception:
-                stats = {}
+            with span("diff_stats"):
+                try:
+                    stats = tab.repo.diff_stats_for_commits(need)
+                except Exception:
+                    stats = {}
             rx.put(stats)
             if self.proxy:
                 self.proxy.send_event()
 
+        COUNTERS["diff_stats.starts"] += 1
         threading.Thread(target=worker, daemon=True,
                          name="diff-stats").start()
         tab.diff_stats_rx = rx
@@ -2824,6 +2831,10 @@ class WhisperApp:
             self._act_apply_stash(name, 0, 0)
 
     def on_scroll(self, dy: float, x: float, y: float) -> None:
+        with span("input"):
+            self._on_scroll(dy, x, y)
+
+    def _on_scroll(self, dy: float, x: float, y: float) -> None:
         tab = self.current()
         if tab is None:
             return

@@ -163,6 +163,7 @@ def _run(args, torch, device, builds, t_proc, t_setup, tmp) -> int:
     from .render.meshstate import get_render_mesh
     from .render.rasterizer import render_scene_device
     from .render.renderer import get_renderer, kernel_libraries
+    from .tracing import COUNTERS
     from .ui.theme import DARK
 
     cuda = device.type == "cuda"
@@ -299,23 +300,22 @@ def _run(args, torch, device, builds, t_proc, t_setup, tmp) -> int:
 
     # Plan-rebuild frames: a compose scroll over 0-400 px from empty
     # layer caches, each frame to a synchronize; a frame that builds a
-    # compose plan is a rebuild frame (the first frame apart).
+    # compose plan (`compose.plan_builds`) is a rebuild frame (the first
+    # frame apart).
     from .render import frame as F
 
     F.clear_caches()
     C.clear_caches()
     n_scroll = min(REBUILD_SCROLL_FRAMES, n_samples)
     rebuild_ms = []
-    plans = set()
     for i in range(n_scroll):
         tab.history_scroll = float(int(i * 400 / n_scroll))
+        builds = COUNTERS["compose.plan_builds"]
         t0 = time.perf_counter()
         frame()
         sync()
         ms = (time.perf_counter() - t0) * 1e3
-        new = {id(p) for p in C._PLAN_CACHE.values()} - plans
-        plans |= new
-        if new and i > 0:
+        if COUNTERS["compose.plan_builds"] > builds and i > 0:
             rebuild_ms.append(ms)
     # The oversized frame: a 5K screenshot of the same view, from the
     # compiled scene to a synchronize (median of three after one). The

@@ -29,6 +29,7 @@ from ..gitcore.types import (
     WorkingDirStatus,
     WorktreeInfo,
 )
+from ..tracing import COUNTERS, span
 from .proxy import EventLoopProxy
 
 __all__ = ["MAX_COMMITS", "StatusResult", "RepoStateResult",
@@ -155,7 +156,13 @@ def spawn_status_refresh(
         if proxy is not None:
             proxy.send_event()
 
-    threading.Thread(target=worker, daemon=True, name="status-refresh").start()
+    def traced():
+        with span("refresh.status"):
+            worker()
+
+    COUNTERS["refresh.status_starts"] += 1
+    threading.Thread(target=traced, daemon=True,
+                     name="status-refresh").start()
     return rx
 
 
@@ -260,5 +267,11 @@ def spawn_repo_state_refresh(
         if proxy is not None:
             proxy.send_event()
 
-    threading.Thread(target=worker, daemon=True, name="state-refresh").start()
+    def traced():
+        with span("refresh.state"):
+            worker()
+
+    COUNTERS["refresh.state_starts"] += 1
+    threading.Thread(target=traced, daemon=True,
+                     name="state-refresh").start()
     return rx

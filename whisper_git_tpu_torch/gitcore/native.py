@@ -12,6 +12,8 @@ import ctypes
 import os
 from typing import Optional
 
+from .. import tracing
+
 _LIB = None
 _TRIED = False
 
@@ -79,9 +81,12 @@ DIRTY_CONFLICTED = 8
 # refuses whenever a repo feature could make it disagree with `git
 # status` — these counters measure how often that actually happens, so
 # the "0.06 ms typical" claim is bounded by data, not hope. Printed to
-# stderr under WGIT_FRAME_DIAG=1 (every 50 verdicts per kind).
+# stderr under WGIT_FRAME_DIAG=1 (every 50 verdicts per kind), and
+# snapshot with the program's other counters (`tracing.counters()`, as
+# `scan.<kind>`).
 SCAN_STATS = {"quick_certain": 0, "quick_fallback": 0,
               "status_certain": 0, "status_fallback": 0}
+tracing.register_counters("scan", SCAN_STATS)
 
 
 def scan_stats() -> dict:

@@ -28,7 +28,7 @@ from __future__ import annotations
 import gc
 import time
 
-_STATE = {"installed": False, "last_full": 0.0, "last_ms": None}
+_STATE = {"installed": False, "last_full": 0.0}
 
 IDLE_EVERY_S = 15.0
 BACKSTOP_S = 90.0
@@ -68,6 +68,5 @@ def idle_gc_tick(idle: bool) -> float | None:
         gc.freeze()
         _STATE["last_full"] = time.monotonic()
         ms = (time.perf_counter() - t0) * 1e3
-        _STATE["last_ms"] = ms
         return ms
     return None

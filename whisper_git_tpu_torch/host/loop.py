@@ -31,6 +31,7 @@ import os
 import threading
 import time
 
+from .. import tracing
 from ..app.ui_app import WhisperApp
 from ..engine import EventLoopProxy
 
@@ -223,10 +224,12 @@ def run_loop(app: WhisperApp, max_frames: int | None = None,
                     render_box[0] = None
                 if work is None:   # stop requested, mailbox drained
                     return
-                root_w, vw, vh = work
+                root_w, vw, vh, frame_no = work
+                tracing.set_frame(frame_no)
                 try:
-                    scene = renderer.compile(root_w, (vw, vh),
-                                             DARK.background)
+                    with tracing.span("compile"):
+                        scene = renderer.compile(root_w, (vw, vh),
+                                                 DARK.background)
                     img = render_scene_device(
                         scene, renderer.font_tex_device(),
                         renderer.image_atlas_device())
@@ -234,8 +237,9 @@ def run_loop(app: WhisperApp, max_frames: int | None = None,
                         display.show(img)
                     if dump_path:
                         from ..render.renderer import save_png
+                        from ..render.transfer import readback
 
-                        save_png(img.cpu().numpy(), dump_path)
+                        save_png(readback(img), dump_path)
                 except Exception as e:   # surfaced on the UI thread
                     render_err.append(e)
                     return
@@ -260,6 +264,12 @@ def run_loop(app: WhisperApp, max_frames: int | None = None,
     # ~5 s, with the kernels' build states.
     ledger_path = os.environ.get("WGIT_LEDGER")
     ledger_last = 0.0
+    # WGIT_TRACE=path: record the program's spans (tracing.py) from here
+    # and write them with the counters to `path` as Chrome trace-event
+    # JSON at exit.
+    trace_path = os.environ.get("WGIT_TRACE")
+    if trace_path:
+        tracing.enable()
     # WGIT_TRACEMALLOC=path: python-allocation growth attribution —
     # snapshot at start-of-loop, write the top deltas to `path` at each
     # housekeeping tick (RSS-creep bisection; ~2x alloc overhead).
@@ -322,7 +332,9 @@ def run_loop(app: WhisperApp, max_frames: int | None = None,
                 raise render_err[0]
             if display is not None:
                 display.check()   # a failed readback ends the run
-            app.before_build()
+            frame_no = tracing.next_frame()
+            with tracing.span("build"):
+                app.before_build()
             viewport = (float(app.config.window_width),
                         float(app.config.window_height))
             root = runner.prepare(viewport)
@@ -340,7 +352,7 @@ def run_loop(app: WhisperApp, max_frames: int | None = None,
                     and nowd - last_post_t > ECHO_AFTER_S)
                 with render_cv:
                     render_box[0] = (root, int(viewport[0]),
-                                     int(viewport[1]))
+                                     int(viewport[1]), frame_no)
                     render_cv.notify()
                 if last_post_t is None \
                         or display is None \
@@ -446,6 +458,12 @@ def run_loop(app: WhisperApp, max_frames: int | None = None,
             term_ctx.__exit__(None, None, None)
         for tab in app.tabs:
             tab.stop_workers()
+        if trace_path:
+            tracing.disable()
+            try:
+                tracing.write_chrome(trace_path)
+            except OSError as exc:   # the terminal is restored by now
+                print(f"WGIT_TRACE: {exc}", file=sys.stderr)
     # An error on the FINAL frame has no next loop iteration to surface
     # it — a frame-dump run would otherwise "succeed" with no dump
     # written. (Checked after teardown so the terminal is restored; an

@@ -3,9 +3,11 @@ PNG. Counterpart of `whisper_git_tpu/host/screenshot_mode.py`."""
 
 from __future__ import annotations
 
+from .. import tracing
 from ..app.ui_app import WhisperApp
 from ..render.rasterizer import render_scene_device
 from ..render.renderer import get_renderer, save_png
+from ..render.transfer import readback
 from ..ui.theme import DARK
 
 
@@ -15,14 +17,18 @@ def compile_frame(app: WhisperApp, renderer, width: int, height: int,
     the PHYSICAL output size; layout runs at the logical size
     (width/scale) and the compiled commands are scaled into physical
     pixels (Scene.scaled)."""
-    app.before_build()
+    tracing.next_frame()
     viewport = (float(width) / scale, float(height) / scale)
-    tree = app.build(viewport)
+    with tracing.span("build"):
+        app.before_build()
+        tree = app.build(viewport)
     root = renderer.layout(tree, viewport)
-    scene = renderer.compile(root, (int(viewport[0]), int(viewport[1])),
-                             DARK.background)
-    if scale != 1.0:
-        scene = scene.scaled(scale, out_w=width, out_h=height)
+    with tracing.span("compile"):
+        scene = renderer.compile(root, (int(viewport[0]), int(viewport[1])),
+                                 DARK.background)
+        if scale != 1.0:
+            with tracing.span("scale"):
+                scene = scene.scaled(scale, out_w=width, out_h=height)
     return scene
 
 
@@ -39,4 +45,4 @@ def run(path: str, width: int, height: int, scale: float,
     """Render one frame of `app` and write it to `path` as PNG."""
     img = render_frame_device(app, get_renderer(device), width, height,
                               scale)
-    save_png(img.cpu().numpy(), path)
+    save_png(readback(img), path)

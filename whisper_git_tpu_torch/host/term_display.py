@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..render.transfer import count_readback
+
 _ENTER = ("\x1b[?1049h"   # alt screen
           "\x1b[?25l"     # hide cursor
           "\x1b[?1002h"   # button-event mouse tracking (incl. drag)
@@ -337,6 +339,7 @@ class TermDisplay:
             # At most two buffers are held (one read, one waiting), so
             # the ring of three always has a free one.
             buf = self._free.pop()
+        count_readback(grid)
         buf.copy_(grid, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(grid.device))

@@ -63,6 +63,7 @@ import struct
 import numpy as np
 import torch
 
+from .. import tracing
 from . import raster_kernel as K
 from .compose_kernel import I16_SCALE
 
@@ -363,3 +364,5 @@ def render_tiles_blocks(layers_blocks, font_tex: torch.Tensor,
 
 render_tiles_blocks.launches = 0
 render_tiles_blocks.launches_on = {}
+tracing.register_counters("launches.K2",
+                          lambda: render_tiles_blocks.launches)

@@ -63,12 +63,14 @@ import os
 import numpy as np
 import torch
 
+from ..tracing import COUNTERS, span
 from . import frame as F
 from . import rasterizer as R
 from .blocks_kernel import quantize_i16 as _quant_i16_planar  # noqa: F401
 from .blocks_kernel import render_tiles_blocks
 from .compose_kernel import PlanRows, compose_tiles
 from .meshstate import get_render_mesh
+from .transfer import upload
 
 TILE_H = R.TILE_H
 TILE_W = R.TILE_W
@@ -224,6 +226,14 @@ def _chrome_group_image(members, chrome_entries, font_tex, image_atlas,
     hit = _lru_get(_GROUP_CACHE, key)
     if hit is not None:
         return hit
+    with span("compose.group"):
+        return _build_group(key, members, chrome_entries, font_tex,
+                            image_atlas, tiles_y, tiles_x, height, width)
+
+
+def _build_group(key, members, chrome_entries, font_tex, image_atlas,
+                 tiles_y, tiles_x, height, width):
+    COUNTERS["compose.layer_builds"] += 1
     # One blocks-kernel pass rendering every member segment in z order.
     # Each member gets its own pseudo-layer so the kernel preserves the
     # member order exactly (its class order within a layer is fixed).
@@ -263,8 +273,8 @@ def _shift_row(dx: float, dy: float, clip: tuple, device) -> torch.Tensor:
     key = (float(dx), float(dy), tuple(float(c) for c in clip), str(device))
     row = _SHIFT_ROWS.get(key)
     if row is None:
-        row = torch.tensor([key[0], key[1], *key[2]], dtype=torch.float32,
-                           device=device)
+        row = upload(np.array([key[0], key[1], *key[2]], np.float32),
+                     device)
         while len(_SHIFT_ROWS) > 256:
             _SHIFT_ROWS.pop(next(iter(_SHIFT_ROWS)))
         _SHIFT_ROWS[key] = row
@@ -287,7 +297,17 @@ def _window_slab(w, gi, ci, art, caps, font_tex, image_atlas, tiles_x,
         start = -dy - hit["y0s"]
         if 0.0 <= start <= slab_h - height:
             return hit["img"], hit["y0s"], key
-    y0s = -dy - OVERSCAN
+    with span("compose.slab"):
+        return _build_slab(w, ci, art, caps, font_tex, image_atlas, tiles_x,
+                           height, width, key)
+
+
+def _build_slab(w, ci, art, caps, font_tex, image_atlas, tiles_x, height,
+                width, key):
+    COUNTERS["compose.layer_builds"] += 1
+    device = font_tex.device
+    slab_h = _slab_height(height)
+    y0s = -float(w.dy) - OVERSCAN
     c0, c1, c2, c3 = (float(c) for c in w.clip)
     # Device: dequantized window parts shifted (dx, -y0s); x clip baked,
     # y clip left open (it rides the compose mask, which varies with dy).
@@ -304,8 +324,7 @@ def _window_slab(w, gi, ci, art, caps, font_tex, image_atlas, tiles_x,
                              tiles_y_slab, tiles_x, F._CLS_KCAP[ci])
     counts = (bins >= 0).sum(axis=1).astype(np.int32)
     tables = tuple(shifted[j] for j in _CLS_TBL[ci])
-    block = (tables, torch.from_numpy(bins).to(device), None,
-             torch.from_numpy(counts).to(device))
+    block = (tables, upload(bins, device), None, upload(counts, device))
     img = _render_layer(_single_class_blocks(ci, block), font_tex,
                         image_atlas, tiles_y_slab, tiles_x, slab_h, width,
                         layer_i16=True)
@@ -453,12 +472,13 @@ def _compose_frame(blob, images, slabs, font_tex, image_atlas,
     local = ty_pad // mesh.size
     parts = []
     for s, dev in enumerate(mesh.flat):
-        starts_s, dyns_s = F.replicate((starts, dyns), dev)
-        parts.append(compose_tiles(
-            starts_s, images[s], slabs[s], dyns_s, ops=kops,
-            tiles_y=tiles_y, tiles_x=tiles_x, background=background,
-            height=height, width=width, n_rows=local, row0=s * local,
-            rows=rows[s]))
+        with span("shard", card=dev.index):
+            starts_s, dyns_s = F.replicate((starts, dyns), dev)
+            parts.append(compose_tiles(
+                starts_s, images[s], slabs[s], dyns_s, ops=kops,
+                tiles_y=tiles_y, tiles_x=tiles_x, background=background,
+                height=height, width=width, n_rows=local, row0=s * local,
+                rows=rows[s]))
     return F.gather(parts, blob.device)
 
 
@@ -569,7 +589,8 @@ def render_frame_composed(scene, font_tex, image_atlas):
     if prepared is None:
         return None
     args, statics = prepared
-    return _compose_frame(*args, **statics)
+    with span("compose.launch"):
+        return _compose_frame(*args, **statics)
 
 
 def prepare_compose_dispatch(scene, font_tex, image_atlas):
@@ -581,7 +602,47 @@ def prepare_compose_dispatch(scene, font_tex, image_atlas):
     windows = list(getattr(scene, "windows", ()) or ())
     for w in windows:
         if float(w.dy) != float(int(w.dy)):
-            return None  # sub-pixel scroll: a row offset cannot show it
+            # Sub-pixel scroll: a row offset cannot show it.
+            COUNTERS["compose.declined_subpixel"] += 1
+            return None
+    with span("compose.plan") as sp:
+        plan, hit = _plan(scene, windows, font_tex, image_atlas)
+        sp.set(hit=int(hit))
+    height, width = scene.height, scene.width
+    tiles_x = -(-width // TILE_W)
+    tiles_y = -(-height // TILE_H)
+    with span("compose.blob"):
+        starts = [int(-float(windows[gi].dy) - y0s)
+                  for gi, y0s in plan["slab_src"]]
+        blob, dyn_meta = _pack_frame_blob(scene, starts, tiles_y, tiles_x)
+        # Scroll positions and thumb geometry recur: keep the uploaded
+        # blob device-resident keyed by content, so a revisited frame
+        # state uploads nothing.
+        bkey = (hash(blob.tobytes()), str(device))
+        blob_dev = _lru_get(_BLOB_DEV_CACHE, bkey)
+        if blob_dev is None or blob_dev.shape != blob.shape:
+            blob_dev = upload(blob, device)
+            # Small device tensors; 512 entries cover scroll-offset ×
+            # pulse-phase combinations so animated steady states still
+            # recur.
+            while len(_BLOB_DEV_CACHE) > 512:
+                _BLOB_DEV_CACHE.pop(next(iter(_BLOB_DEV_CACHE)))
+            _BLOB_DEV_CACHE[bkey] = blob_dev
+    meta = (plan["ops"], dyn_meta, len(starts))
+    args = (blob_dev, plan["img_stack"], plan["slab_stack"], font_tex,
+            image_atlas)
+    statics = dict(background=tuple(float(c) for c in scene.background[:3]),
+                   height=height, width=width, tiles_y=tiles_y,
+                   tiles_x=tiles_x, meta=meta, rows=plan["rows"],
+                   mesh=get_render_mesh())
+    return args, statics
+
+
+def _plan(scene, windows, font_tex, image_atlas):
+    """The scene's compose plan → (plan, whether the plan cache served
+    it): the cached plan where its slabs still hold the crop, else one
+    built."""
+    device = font_tex.device
     tiles_x = -(-scene.width // TILE_W)
     tiles_y = -(-scene.height // TILE_H)
     height, width = scene.height, scene.width
@@ -630,44 +691,26 @@ def prepare_compose_dispatch(scene, font_tex, image_atlas):
         for gi, y0s in plan["slab_src"]:
             start = -float(windows[gi].dy) - y0s
             if not (0.0 <= start <= plan["slab_h"] - height):
+                COUNTERS["compose.plan_slab_misses"] += 1
                 plan = None
                 break
-    if plan is None:
+    if plan is not None:
+        COUNTERS["compose.plan_hits"] += 1
+        return plan, True
+    COUNTERS["compose.plan_builds"] += 1
+    with span("compose.plan_build"):
         plan = _build_plan(scene, windows, chrome_entries, win_art,
                            win_caps, lws_by_layer, font_tex, image_atlas,
                            tiles_y, tiles_x, height, width)
-        # Plans hold strong references to their layers, so the cap bounds
-        # the device-memory high-water mark; it must exceed the number of
-        # scroll materialization buckets a continuous scroll cycles
-        # through (~5 for a 400 px sweep at the 128 px bucket size), or
-        # every cycle evicts the plan it is about to need.
-        while len(_PLAN_CACHE) > _img_cache_cap(6, device):
-            _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
-        _PLAN_CACHE[plan_key] = plan
-
-    starts = [int(-float(windows[gi].dy) - y0s)
-              for gi, y0s in plan["slab_src"]]
-    blob, dyn_meta = _pack_frame_blob(scene, starts, tiles_y, tiles_x)
-    # Scroll positions and thumb geometry recur: keep the uploaded blob
-    # device-resident keyed by content, so a revisited frame state uploads
-    # nothing.
-    bkey = (hash(blob.tobytes()), str(device))
-    blob_dev = _lru_get(_BLOB_DEV_CACHE, bkey)
-    if blob_dev is None or blob_dev.shape != blob.shape:
-        blob_dev = torch.from_numpy(blob).to(device)
-        # Small device tensors; 512 entries cover scroll-offset × pulse-
-        # phase combinations so animated steady states still recur.
-        while len(_BLOB_DEV_CACHE) > 512:
-            _BLOB_DEV_CACHE.pop(next(iter(_BLOB_DEV_CACHE)))
-        _BLOB_DEV_CACHE[bkey] = blob_dev
-    meta = (plan["ops"], dyn_meta, len(starts))
-    args = (blob_dev, plan["img_stack"], plan["slab_stack"], font_tex,
-            image_atlas)
-    statics = dict(background=tuple(float(c) for c in scene.background[:3]),
-                   height=height, width=width, tiles_y=tiles_y,
-                   tiles_x=tiles_x, meta=meta, rows=plan["rows"],
-                   mesh=get_render_mesh())
-    return args, statics
+    # Plans hold strong references to their layers, so the cap bounds
+    # the device-memory high-water mark; it must exceed the number of
+    # scroll materialization buckets a continuous scroll cycles
+    # through (~5 for a 400 px sweep at the 128 px bucket size), or
+    # every cycle evicts the plan it is about to need.
+    while len(_PLAN_CACHE) > _img_cache_cap(6, device):
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+    _PLAN_CACHE[plan_key] = plan
+    return plan, False
 
 
 def clear_caches() -> None:

@@ -60,6 +60,7 @@ import struct
 import numpy as np
 import torch
 
+from .. import tracing
 from . import raster_kernel as K
 
 TILE_H = K.TILE_H
@@ -435,3 +436,4 @@ def compose_tiles(starts: torch.Tensor, images: tuple, slabs: tuple,
 
 compose_tiles.launches = 0
 compose_tiles.launches_on = {}
+tracing.register_counters("launches.K3", lambda: compose_tiles.launches)

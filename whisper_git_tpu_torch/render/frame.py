@@ -54,9 +54,12 @@ import numpy as np
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
+from .. import tracing
+from ..tracing import span
 from . import rasterizer as R
 from .blocks_kernel import render_tiles_blocks
 from .scene import Scene
+from .transfer import upload
 
 TILE_H = R.TILE_H
 TILE_W = R.TILE_W
@@ -93,10 +96,10 @@ def _inv_scale_blob(caps: tuple, device) -> torch.Tensor:
     key = (caps, str(device))
     inv = _INV_SCALE_BLOB.get(key)
     if inv is None:
-        inv = torch.from_numpy(np.concatenate([
+        inv = upload(np.concatenate([
             np.tile(1.0 / R._part_scale(name, cols, scale),
                     caps[_PART_CLS[name]])
-            for name, cols, scale in R._PART_SPECS])).to(device)
+            for name, cols, scale in R._PART_SPECS]), device)
         if len(_INV_SCALE_BLOB) > 64:
             _INV_SCALE_BLOB.clear()
         _INV_SCALE_BLOB[key] = inv
@@ -246,8 +249,8 @@ def _win_pair_entry(uid: int, ci: int, caps: tuple, boxes: np.ndarray,
         P[:pb["WR"]] = pb["P"]
         counts = np.zeros((wr_cap, tiles_x), np.int32)
         counts[:pb["WR"]] = pb["counts"]
-        pb = {"P": torch.from_numpy(P).to(device),
-              "counts": torch.from_numpy(counts).to(device),
+        pb = {"P": upload(P, device),
+              "counts": upload(counts, device),
               "row0": pb["row0"], "WR": pb["WR"], "kP": pb["kP"],
               "wr_cap": wr_cap}
     while len(_WIN_PAIR_DEV) > 48:
@@ -262,7 +265,7 @@ def _win_parts(uid: int, caps: tuple, blob: np.ndarray, device):
     if hit is None:
         while len(_WIN_PARTS_DEV) > 32:
             _WIN_PARTS_DEV.pop(next(iter(_WIN_PARTS_DEV)))
-        hit = _dequant_parts(torch.from_numpy(blob).to(device), caps)
+        hit = _dequant_parts(upload(blob, device), caps)
         _WIN_PARTS_DEV[key] = hit
     return hit
 
@@ -305,7 +308,7 @@ def _chrome_entry(lb, li: int, pos_lists: tuple, tiles_y: int,
     used = {n: counts_n[_PART_CLS[n]] for n in arrays}
     cap_of = {n: caps[_PART_CLS[n]] for n in arrays}
     blob = _quant_parts_blob(arrays, used, cap_of)
-    parts = _dequant_parts(torch.from_numpy(blob).to(device), caps)
+    parts = _dequant_parts(upload(blob, device), caps)
     boxes = (R._intersect_boxes(R._shape_boxes(lb.shapes, ns),
                                 lb.shape_clips[:ns]),
              R._intersect_boxes(R._quad_boxes(lb.glyphs, ng),
@@ -333,8 +336,8 @@ def _chrome_entry(lb, li: int, pos_lists: tuple, tiles_y: int,
                         .astype(np.int32))
         rows.append(total)
         seg = np.stack(rows)  # (S+2, T)
-        bins_dev.append(torch.from_numpy(bins).to(device))
-        segs_dev.append(torch.from_numpy(seg).to(device))
+        bins_dev.append(upload(bins, device))
+        segs_dev.append(upload(seg, device))
         ks.append(bins.shape[1])
         # host-side per-segment totals so the compose path can skip empty
         # chrome segments without a device readback
@@ -560,8 +563,8 @@ def _uniform_scale(device) -> torch.Tensor:
     1/4 px (exact powers of two, so the product equals the quotient)."""
     inv = _UNIFORM_SCALE.get(str(device))
     if inv is None:
-        inv = torch.tensor([1 / 8.0] * 2 + [1 / 4.0] * 4 + [1.0] * 2,
-                           dtype=torch.float32, device=device)
+        inv = upload(np.array([1 / 8.0] * 2 + [1 / 4.0] * 4 + [1.0] * 2,
+                              np.float32), device)
         _UNIFORM_SCALE[str(device)] = inv
     return inv
 
@@ -667,6 +670,7 @@ _REPLICAS: dict = {}   # device -> {source tensor: (its version, its copy)}
 # outputs gathered onto the first device ("gather"). The caller zeroes
 # them; a mesh of one device repeated copies and counts nothing.
 MOVED = {"replicas": 0, "layers": 0, "gather": 0}
+tracing.register_counters("moved", MOVED)
 # How much larger than a view its base may be for `replicate` to copy the
 # base (once) and not the view.
 _VIEW_SPAN = 64
@@ -725,7 +729,8 @@ def replicate(tree, device):
 def gather(parts, device) -> torch.Tensor:
     """The shards' outputs, moved to `device` and joined along their first
     axis (rows of a frame or a layer, tiles of a slice)."""
-    return torch.cat([move(p, device, "gather") for p in parts])
+    with span("gather"):
+        return torch.cat([move(p, device, "gather") for p in parts])
 
 
 def _sharded_tile_rows(tiles_y: int, tiles_x: int, mesh) -> tuple:
@@ -752,12 +757,13 @@ def _render_tiles_blocks_sharded(layers_blocks, font_tex, image_atlas,
     local = ty_pad // mesh.size
     parts = []
     for s, dev in enumerate(mesh.flat):
-        lb, ftex, iatlas = replicate((layers_blocks, font_tex, image_atlas),
-                                     dev)
-        parts.append(render_tiles_blocks(
-            lb, ftex, iatlas, background, tiles_y, tiles_x, height, width,
-            n_tiles=local * tiles_x, tile0=s * local * tiles_x,
-            layer_i16=layer_i16, tile_rect=tile_rect))
+        with span("shard", card=dev.index):
+            lb, ftex, iatlas = replicate((layers_blocks, font_tex,
+                                          image_atlas), dev)
+            parts.append(render_tiles_blocks(
+                lb, ftex, iatlas, background, tiles_y, tiles_x, height,
+                width, n_tiles=local * tiles_x, tile0=s * local * tiles_x,
+                layer_i16=layer_i16, tile_rect=tile_rect))
     return gather(parts, mesh.flat[0])
 
 
@@ -783,18 +789,21 @@ def render_frame_device(scene: Scene, font_tex: torch.Tensor,
 
     device = font_tex.device
     if image_atlas is None:
-        image_atlas = torch.from_numpy(scene.image_atlas).to(device)
-    frame_blob, chrome_args, win_args, meta = pack_frame(scene, device)
-    blocks = build_blocks(torch.from_numpy(frame_blob).to(device),
-                          chrome_args, win_args, meta)
+        image_atlas = upload(scene.image_atlas, device)
+    with span("frame.pack"):
+        frame_blob, chrome_args, win_args, meta = pack_frame(scene, device)
+    with span("frame.blocks"):
+        blocks = build_blocks(upload(frame_blob, device), chrome_args,
+                              win_args, meta)
     args = (blocks, font_tex, image_atlas,
             tuple(float(c) for c in scene.background[:3]), meta[0], meta[1],
             scene.height, scene.width)
     mesh = get_render_mesh()
-    if mesh is not None:
-        return move(_render_tiles_blocks_sharded(*args, mesh), device,
-                    "gather")
-    return render_tiles_blocks(*args)
+    with span("frame.launch"):
+        if mesh is not None:
+            return move(_render_tiles_blocks_sharded(*args, mesh), device,
+                        "gather")
+        return render_tiles_blocks(*args)
 
 
 def clear_caches() -> None:

@@ -45,7 +45,9 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from .scene import MAX_LAYERS  # the parameter block holds every layer
+from .transfer import upload
 
 TILE_H = 64
 TILE_W = 128
@@ -480,7 +482,7 @@ def place_descriptors(p, ptr_field: str, inline_field: str, desc, cap: int,
                 ctypes.addressof(p) + getattr(type(p), inline_field).offset,
                 desc.ctypes.data, desc.nbytes)
         return None
-    desc_dev = torch.from_numpy(desc.view(np.uint8).copy()).to(device)
+    desc_dev = upload(desc.view(np.uint8).copy(), device)
     setattr(p, ptr_field, desc_dev.data_ptr())
     return desc_dev
 
@@ -656,3 +658,4 @@ def render_tiles(layer_data, font_tex: torch.Tensor,
 
 render_tiles.launches = 0
 render_tiles.launches_on = {}
+tracing.register_counters("launches.K1", lambda: render_tiles.launches)

@@ -23,8 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..tracing import COUNTERS, span
 from .raster_kernel import TILE_H, TILE_W, render_tiles
 from .scene import Scene, _bucket
+from .transfer import readback, upload
 
 K_SHAPES = 256
 K_GLYPHS = 512
@@ -483,8 +485,7 @@ def _inv_scale(name: str, cols: int, scale, device) -> torch.Tensor:
     key = (name, str(device))
     inv = _INV_SCALE_DEV.get(key)
     if inv is None:
-        inv = torch.from_numpy(1.0 / _part_scale(name, cols, scale)
-                               ).to(device)
+        inv = upload(1.0 / _part_scale(name, cols, scale), device)
         _INV_SCALE_DEV[key] = inv
     return inv
 
@@ -599,7 +600,7 @@ def _device_window_blob(uid, caps, blob: np.ndarray,
     if d is None:
         while len(_WIN_DEV_CACHE) > 16:
             _WIN_DEV_CACHE.pop(next(iter(_WIN_DEV_CACHE)))
-        d = torch.from_numpy(blob).to(device)
+        d = upload(blob, device)
         _WIN_DEV_CACHE[key] = d
     return d
 
@@ -610,30 +611,34 @@ def _render_scene_f32_device(scene: Scene, font_tex: torch.Tensor,
     quantization), with scroll windows spliced inline on the host at their
     exact z-positions (`Scene.inline_windows`), binned per layer and class,
     and rasterized by one `render_tiles` call."""
-    flat = scene.inline_windows()
+    with span("oversized.inline"):
+        flat = scene.inline_windows()
     device = font_tex.device
     tiles_x = -(-flat.width // TILE_W)
     tiles_y = -(-flat.height // TILE_H)
-    layer_data = []
-    layer_sig = []
-    for lb in flat.layers:
-        bins = (
+    with span("oversized.bin"):
+        bins = [(
             _bin_commands(_shape_boxes(lb.shapes, lb.n_shapes), lb.n_shapes,
                           tiles_y, tiles_x, K_SHAPES)[0],
             _bin_commands(_quad_boxes(lb.glyphs, lb.n_glyphs), lb.n_glyphs,
                           tiles_y, tiles_x, K_GLYPHS)[0],
             _bin_commands(_quad_boxes(lb.images, lb.n_images), lb.n_images,
                           tiles_y, tiles_x, K_IMAGES)[0])
-        layer_data.append(tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (lb.shapes, lb.shape_clips, lb.glyphs, lb.glyph_colors,
-                      lb.glyph_clips, lb.images, lb.image_clips) + bins))
-        layer_sig.append((lb.n_shapes > 0, lb.n_glyphs > 0,
-                          lb.n_images > 0))
-    return render_tiles(tuple(layer_data), font_tex, image_atlas,
-                        tuple(float(c) for c in flat.background[:3]),
-                        tiles_y, tiles_x, tuple(layer_sig), flat.height,
-                        flat.width)
+            for lb in flat.layers]
+    with span("oversized.upload"):
+        layer_data = tuple(
+            tuple(upload(np.ascontiguousarray(a), device)
+                  for a in (lb.shapes, lb.shape_clips, lb.glyphs,
+                            lb.glyph_colors, lb.glyph_clips, lb.images,
+                            lb.image_clips) + lbins)
+            for lb, lbins in zip(flat.layers, bins))
+    layer_sig = tuple((lb.n_shapes > 0, lb.n_glyphs > 0, lb.n_images > 0)
+                      for lb in flat.layers)
+    with span("oversized.launch"):
+        return render_tiles(layer_data, font_tex, image_atlas,
+                            tuple(float(c) for c in flat.background[:3]),
+                            tiles_y, tiles_x, layer_sig, flat.height,
+                            flat.width)
 
 
 def render_scene_device(scene: Scene, font_tex: torch.Tensor,
@@ -656,30 +661,36 @@ def render_scene_device(scene: Scene, font_tex: torch.Tensor,
     from . import compose as C
     from . import frame as F
 
-    device = font_tex.device
-    if image_atlas is None:
-        image_atlas = torch.from_numpy(scene.image_atlas).to(device)
-    if max(scene.width, scene.height) > MAX_PACKED_PX:
-        return _render_scene_f32_device(scene, font_tex, image_atlas)
-    if F.frame_cache_enabled():
-        if C.compose_enabled():
-            img = C.render_frame_composed(scene, font_tex, image_atlas)
-            if img is not None:
-                return img
-        return F.render_frame_device(scene, font_tex, image_atlas)
-    fused, meta, tiles_y, tiles_x, win_list = pack_scene(scene)
-    wins = tuple(_device_window_blob(uid, caps, blob, device)
-                 for uid, caps, blob in win_list)
-    fused_dev = torch.from_numpy(fused).to(device)
-    layer_data, layer_sig = unpack_layers(fused_dev, wins, meta,
-                                          tiles_y * tiles_x)
-    return render_tiles(layer_data, font_tex, image_atlas,
-                        tuple(float(c) for c in scene.background[:3]),
-                        tiles_y, tiles_x, layer_sig,
-                        scene.height, scene.width)
+    with span("render"):
+        device = font_tex.device
+        if image_atlas is None:
+            image_atlas = upload(scene.image_atlas, device)
+        if max(scene.width, scene.height) > MAX_PACKED_PX:
+            COUNTERS["frames.oversized"] += 1
+            return _render_scene_f32_device(scene, font_tex, image_atlas)
+        if F.frame_cache_enabled():
+            if C.compose_enabled():
+                COUNTERS["compose.attempted"] += 1
+                img = C.render_frame_composed(scene, font_tex, image_atlas)
+                if img is not None:
+                    COUNTERS["frames.composed"] += 1
+                    return img
+            COUNTERS["frames.frame_cache"] += 1
+            return F.render_frame_device(scene, font_tex, image_atlas)
+        COUNTERS["frames.packed"] += 1
+        fused, meta, tiles_y, tiles_x, win_list = pack_scene(scene)
+        wins = tuple(_device_window_blob(uid, caps, blob, device)
+                     for uid, caps, blob in win_list)
+        fused_dev = upload(fused, device)
+        layer_data, layer_sig = unpack_layers(fused_dev, wins, meta,
+                                              tiles_y * tiles_x)
+        return render_tiles(layer_data, font_tex, image_atlas,
+                            tuple(float(c) for c in scene.background[:3]),
+                            tiles_y, tiles_x, layer_sig,
+                            scene.height, scene.width)
 
 
 def render_scene(scene: Scene, font_tex: torch.Tensor,
                  image_atlas: torch.Tensor | None = None) -> np.ndarray:
     """Rasterize a compiled Scene → host (H, W, 4) uint8."""
-    return render_scene_device(scene, font_tex, image_atlas).cpu().numpy()
+    return readback(render_scene_device(scene, font_tex, image_atlas))

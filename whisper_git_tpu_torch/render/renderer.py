@@ -29,10 +29,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..tracing import span
 from ..ui.el import El
 from ..ui.layout import LayoutNode, layout_tree
 from .atlas import AtlasMeasurer, font_texture, load_atlases
 from .scene import Scene, SceneCompiler
+from .transfer import upload
 
 
 def resolve_device(device) -> torch.device:
@@ -100,20 +102,21 @@ class Renderer:
             tex = self.font_tex
             if bank.used:
                 tex = np.concatenate([tex, bank.texture], axis=0)
-            self._font_tex_dev = torch.from_numpy(tex).to(self.device)
+            self._font_tex_dev = upload(tex, self.device)
             self._font_tex_bank_version = want
         return self._font_tex_dev
 
     def image_atlas_device(self) -> torch.Tensor:
         if (self._image_atlas_dev is None
                 or self._image_atlas_version != self.compiler.atlas_version):
-            self._image_atlas_dev = torch.from_numpy(
-                self.compiler.image_atlas.copy()).to(self.device)
+            self._image_atlas_dev = upload(
+                self.compiler.image_atlas.copy(), self.device)
             self._image_atlas_version = self.compiler.atlas_version
         return self._image_atlas_dev
 
     def layout(self, el: El, viewport: tuple[float, float]) -> LayoutNode:
-        return layout_tree(el, viewport, self.measurer)
+        with span("layout"):
+            return layout_tree(el, viewport, self.measurer)
 
     def compile(self, root: LayoutNode, viewport: tuple[int, int],
                 background: tuple) -> Scene:

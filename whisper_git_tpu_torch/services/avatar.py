@@ -28,6 +28,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..tracing import COUNTERS, span
+
 AVATAR_PIXELS = 64  # reference: avatar.rs:25
 
 
@@ -142,7 +144,8 @@ class AvatarCache:
             self._states[email] = AvatarState.IN_FLIGHT
 
         def worker():
-            arr = download_avatar(email)
+            with span("avatar.fetch"):
+                arr = download_avatar(email)
             with self._lock:
                 if arr is None:
                     self._states[email] = AvatarState.FAILED
@@ -152,6 +155,7 @@ class AvatarCache:
             if self._proxy is not None:
                 self._proxy.send_event()
 
+        COUNTERS["avatar.fetch_starts"] += 1
         threading.Thread(target=worker, daemon=True,
                          name=f"avatar-{email_hash(email)[:8]}").start()
         return None

@@ -15,6 +15,7 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+from ..tracing import span
 from .layout import LayoutNode, layout_tree
 
 DOUBLE_CLICK_S = 0.4
@@ -35,9 +36,11 @@ class Runner:
     def prepare(self, viewport: tuple[float, float]) -> LayoutNode:
         """Build + lay out the app's current El tree (aetna
         Runner::prepare's layout step; painting goes through render/)."""
-        tree = self.app.build(viewport)
+        with span("build"):
+            tree = self.app.build(viewport)
         kw = {"measurer": self.measurer} if self.measurer else {}
-        self.root = layout_tree(tree, viewport, **kw)
+        with span("layout"):
+            self.root = layout_tree(tree, viewport, **kw)
         return self.root
 
     # -- pointer -------------------------------------------------------------
