@@ -77,7 +77,9 @@ each fatal on failure:
               frame and the device's busy share over 20 frames of compose
               and of the frame cache, and the device events of one plan
               build (torch.profiler): a steady composed frame copies at
-              most its blob, and no quantize pass follows a layer build
+              most its blob, and with its blob on the card is one K3
+              launch and no other device event; no quantize pass follows
+              a layer build
   8. present  the presenter's `_downsample` on the card within 1 u8 of the
               CPU's (the history view and seeded frames, at terminal, sixel
               and 1:1 sizes); `TermDisplay` fed CUDA frames through its
@@ -217,7 +219,8 @@ exactly 0, so no implementation has to compute there; the former count
 (8192 pixels an entry) is logged beside the new one. The compose kernel's
 bytes are the frame written, 8 B a pixel of every chrome layer and of every
 slab's visible rows, 16 B a pixel of a pre-rendered tail, the inline tails'
-tables and bins, the starts and the descriptors; its arithmetic 11
+i16 tables and bins rows and the i16 starts it reads from the frame blob,
+and the descriptors; its arithmetic 11
 operations a pixel a blended i16 layer, 7 an f32 one, and the inline tails'
 bin entries as above. The script fails if a kernel reads faster than its
 bound.
@@ -385,21 +388,26 @@ BLEND_FLOPS_I16 = 11   # 4 scales, 1 - a, three multiply-adds
 BLEND_FLOPS_F32 = 7
 
 
-def compose_bound(torch, K, starts, images, slabs, dyns, ops, out,
+def compose_bound(torch, K, blob, images, slabs, dyns, ops, out,
                   desc_bytes: int, row0: int = 0,
-                  frame_h: int | None = None) -> tuple[float, str, dict]:
+                  frame_h: int | None = None, *,
+                  starts: slice) -> tuple[float, str, dict]:
     """The least time the card could take for one compose launch on these
-    inputs; of a slice from tile row `row0` (`out` its rows of a frame
-    `frame_h` tall), for the rows it blends. → (bound ms, "bytes" |
-    "operations", {"bytes", "layer_px": pixels blended from chrome
-    layers, slab rows inside their y clip and pre-rendered tails,
-    "entries": inline shape bin entries, "pixels": of their extents,
-    "old_ms": the bound at 8192 pixels an entry})."""
+    inputs (the frame blob, `starts` its slice of slab starts); of a slice
+    from tile row `row0` (`out` its rows of a frame `frame_h` tall), for
+    the rows it blends. → (bound ms, "bytes" | "operations", {"bytes",
+    "layer_px": pixels blended from chrome layers, slab rows inside their
+    y clip and pre-rendered tails, "entries": inline shape bin entries,
+    "pixels": of their extents, "old_ms": the bound at 8192 pixels an
+    entry})."""
+    from whisper_git_tpu_torch.render import compose_kernel as CK
+
     width = out.shape[1]
     y0 = row0 * 64
     y1 = y0 + out.shape[0]
     height = frame_h or out.shape[0]
-    n_bytes = (out.numel() + starts.numel() * starts.element_size()
+    starts_i = blob[starts]
+    n_bytes = (out.numel() + starts_i.numel() * blob.element_size()
                + desc_bytes)
     px_i16 = px_f32 = entries = pixels = 0
     ys = torch.arange(y0, y1, dtype=torch.float32) + 0.5
@@ -412,21 +420,24 @@ def compose_bound(torch, K, starts, images, slabs, dyns, ops, out,
             t = images[op[1]]
             px_i16 += rows_in(op[2] * 64, t.shape[0]) * t.shape[1]
         elif op[0] == "slab":
-            slab, start = slabs[op[1]], int(starts[op[1]].item())
+            slab, start = slabs[op[1]], int(starts_i[op[1]].item())
             sy = ys - 0.5 + start
             rows = ((ys >= op[2][1]) & (ys <= op[2][3]) & (sy >= 0)
                     & (sy < slab.shape[0]))
             px_i16 += int(rows.sum().item()) * min(slab.shape[1], width)
         elif op[0] == "dyni":
-            tables = dyns.get((op[1], op[2]))
-            if tables is None:
+            tail = dyns.get((op[1], op[2]))
+            if tail is None:
                 continue
-            shapes, clips, bins, counts = tables
+            # The kernel reads the tail's i16 tables and its slice's rows
+            # of i16 bins from the blob.
+            shapes, clips, bins, counts = CK.decode_tail(
+                blob, tail, op[3], op[4], -(-height // 64))
             ts = op[4]
             rows = slice(row0 * ts, -(-y1 // 64) * ts)
             bins, counts = bins[rows], counts[rows]
-            n_bytes += sum(t.numel() * t.element_size()
-                           for t in (shapes, clips, bins, counts))
+            n_bytes += (shapes.numel() + clips.numel() + bins.numel()) \
+                * blob.element_size()
             k = torch.arange(bins.shape[1], device=bins.device)[None, :]
             # The tail's tables and bins live in its sub-grid of tile
             # columns [c0, c0 + ts), and so do the extents.
@@ -742,17 +753,17 @@ def run_phases(torch, card: str, kind: str, work: str,
         return compile_frame(app, renderer, *size)
 
     def k3_inputs(scene, atlas=None):
-        """→ (starts, images, slabs, dyns), keywords, blob bytes, the
-        plan's descriptor rows."""
+        """→ (blob, images, slabs, dyns), keywords (the starts' slice of
+        the blob among them), blob bytes, the plan's descriptor rows."""
         atlas = image_atlas if atlas is None else atlas
         args, st = C.prepare_compose_dispatch(scene, font, atlas)
         starts, dyns, kops = C.frame_tails(
             args[0], font, atlas, st["height"], st["width"],
             st["tiles_y"], st["tiles_x"], st["meta"])
-        kw = dict(ops=kops, tiles_y=st["tiles_y"], tiles_x=st["tiles_x"],
-                  background=st["background"], height=st["height"],
-                  width=st["width"])
-        return ((starts, tuple(args[1]), tuple(args[2]), dyns), kw,
+        kw = dict(starts=starts, ops=kops, tiles_y=st["tiles_y"],
+                  tiles_x=st["tiles_x"], background=st["background"],
+                  height=st["height"], width=st["width"])
+        return ((args[0], tuple(args[1]), tuple(args[2]), dyns), kw,
                 args[0].numel() * args[0].element_size(), st["rows"])
 
     helpers = SimpleNamespace(
@@ -843,7 +854,7 @@ def run_phases(torch, card: str, kind: str, work: str,
             for seed in (0, 1):
                 a = compose_args_to(synthetic_compose(case, seed, cw, ch),
                                     dev)
-                pos = tuple(a.pop(k) for k in ("starts", "images", "slabs",
+                pos = tuple(a.pop(k) for k in ("blob", "images", "slabs",
                                                "dyns"))
                 kinds_seen |= {op[0] for op in a["ops"]}
                 k, p = k3_both(pos, a)
@@ -862,7 +873,7 @@ def run_phases(torch, card: str, kind: str, work: str,
     # the same layers blended again and again, through the device array.
     for case in ("layers", "tails"):
         a = compose_args_to(synthetic_compose(case, 0, cw, ch), dev)
-        pos = tuple(a.pop(k) for k in ("starts", "images", "slabs", "dyns"))
+        pos = tuple(a.pop(k) for k in ("blob", "images", "slabs", "dyns"))
         a["ops"] = a["ops"] * (CK.MAX_INLINE_OPS // len(a["ops"]) + 1)
         if len(a["ops"]) <= CK.MAX_INLINE_OPS:
             fail("the long op list is under the cap")
@@ -1298,9 +1309,10 @@ def run_phases(torch, card: str, kind: str, work: str,
         for layer, sig in zip(args1[0], args1[6])
         for ci in B.Z_ORDER if sig[ci]], out1, args1[5])
     bound2 = kernel_bound(torch, K, blocks_runs(args2[0]), out2, args2[5])
-    desc3 = CK.op_descriptors(pos3[1], pos3[2], pos3[3], kw3["ops"],
-                              kw3["tiles_y"], pos3[0].device, rows3)[0]
-    bound3 = compose_bound(torch, K, *pos3, kw3["ops"], out3, desc3.nbytes)
+    desc3 = CK.op_descriptors(*pos3, kw3["ops"], kw3["tiles_y"],
+                              pos3[0].device, rows3)[0]
+    bound3 = compose_bound(torch, K, *pos3, kw3["ops"], out3, desc3.nbytes,
+                           starts=kw3["starts"])
     log(f"timing [{card}]: history view {W}x{H} at offset 0; K1 walks "
         f"(shape, glyph, image) bin entries {bound1[2]['entries']} whose "
         f"extents hold {bound1[2]['pixels']} pixels and moves "
@@ -1558,14 +1570,14 @@ def run_phases(torch, card: str, kind: str, work: str,
 
     def tails_step(scene, state):
         args, st = state
+        blob = torch.from_numpy(blob_host[id(scene)]).to(dev)
         starts, dyns, kops = C.frame_tails(
-            torch.from_numpy(blob_host[id(scene)]).to(dev), font,
-            image_atlas, st["height"], st["width"], st["tiles_y"],
-            st["tiles_x"], st["meta"])
-        return (starts, tuple(args[1]), tuple(args[2]), dyns), dict(
-            ops=kops, tiles_y=st["tiles_y"], tiles_x=st["tiles_x"],
-            background=st["background"], height=st["height"],
-            width=st["width"])
+            blob, font, image_atlas, st["height"], st["width"],
+            st["tiles_y"], st["tiles_x"], st["meta"])
+        return (blob, tuple(args[1]), tuple(args[2]), dyns), dict(
+            starts=starts, ops=kops, tiles_y=st["tiles_y"],
+            tiles_x=st["tiles_x"], background=st["background"],
+            height=st["height"], width=st["width"])
 
     n0 = counts()
     log(f"timing [{card}]: compose, stages alone, median of 20 steady "
@@ -1573,7 +1585,7 @@ def run_phases(torch, card: str, kind: str, work: str,
             ("plan validation+pack_frame_blob",
              lambda scene, _: C.prepare_compose_dispatch(scene, font,
                                                          image_atlas)),
-            ("upload+tail de-quantize", tails_step),
+            ("upload+frame_tails", tails_step),
             ("K3", lambda scene, st: CK.compose_tiles(*st[0], **st[1]))),
             steady_scenes))
     if tuple(b - a for a, b in zip(n0, counts())) != (0, 0, 20):
@@ -1623,6 +1635,31 @@ def run_phases(torch, card: str, kind: str, work: str,
     if events_c >= 10.0:
         fail(f"a steady composed frame has {events_c} device events, no "
              "fewer than before the descriptors rode in the launch (10.0)")
+    # The same frames again with their blobs on the card: K3 reads each
+    # blob itself, so a frame is K3's launch alone, no ATen kernel or copy.
+    offs = COMPOSE_OFFSETS[-20:]
+    for off in offs:
+        render_scene_device(compile_at(off), font, image_atlas)
+    torch.cuda.synchronize()
+    for _ in range(3):   # a fresh profiler now and then records none
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for off in offs:
+                render_scene_device(compile_at(off), font, image_atlas)
+            torch.cuda.synchronize()
+        steady = device_events(prof)
+        if steady:
+            break
+    k3_n = sum(e.count for e in steady
+               if "compose_tiles_kernel" in e.key)
+    others = [f"{e.key[:60]} x{e.count}" for e in steady
+              if "compose_tiles_kernel" not in e.key]
+    log(f"profile [{card}]: compose, {len(offs)} steady frames with their "
+        f"blobs on the card: {k3_n} compose_tiles_kernel launches; other "
+        f"device events: {'; '.join(others) or 'none'}")
+    if k3_n != len(offs) or others:
+        fail("a steady composed frame runs more than compose_tiles_kernel "
+             "on the card")
     profile_path("cache", "frame cache")
 
     # One plan build under the profiler: the layers come out of K2 as i16,
@@ -2301,8 +2338,8 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
     sl2 = B.render_tiles_blocks(*args2, n_tiles=n4 * tx, tile0=r0 * tx)
     sl3 = CK.compose_tiles(*pos, **kw, rows=rows3, n_rows=n4, row0=r0)
     sl1 = K.render_tiles(padded, *args1[1:], n_tiles=local, tile0=0)
-    desc = CK.op_descriptors(pos[1], pos[2], pos[3], kw["ops"],
-                             kw["tiles_y"], pos[0].device, rows3)[0]
+    desc = CK.op_descriptors(*pos, kw["ops"], kw["tiles_y"], pos[0].device,
+                             rows3)[0]
     cases = (
         ("K1", lambda: K.render_tiles(*args1),
          kernel_bound(torch, K, runs1(args1[0], args1[6], slice(0, T)),
@@ -2321,11 +2358,12 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
         ("K3", lambda: CK.compose_tiles(*pos, **kw, rows=rows3),
          compose_bound(torch, K, *pos, kw["ops"],
                        CK.compose_tiles(*pos, **kw, rows=rows3),
-                       desc.nbytes)),
+                       desc.nbytes, starts=kw["starts"])),
         (f"K3 rows [{r0}, {r0 + n4})",
          lambda: CK.compose_tiles(*pos, **kw, rows=rows3, n_rows=n4,
                                   row0=r0),
-         compose_bound(torch, K, *pos, kw["ops"], sl3, desc.nbytes, r0, H)))
+         compose_bound(torch, K, *pos, kw["ops"], sl3, desc.nbytes, r0, H,
+                       starts=kw["starts"])))
     # The kernel alone from a cold L2, as the bound's bytes come from device
     # memory: 38 MB of K3's layers fit in the 50 MB L2, and back-to-back
     # launches would read them from there.

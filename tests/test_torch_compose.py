@@ -24,6 +24,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+import torch.utils._python_dispatch
 
 import whisper_git_tpu.render.compose as C
 import whisper_git_tpu.render.frame as F
@@ -32,9 +33,11 @@ from test_torch_compose_kernel import interleaved, port_compose_args
 from test_torch_slice import fresh_compile_caches
 from whisper_git_tpu.render.renderer import get_renderer
 from whisper_git_tpu.ui.theme import DARK
+from whisper_git_tpu_torch.parallel import mesh as PM
 from whisper_git_tpu_torch.render import compose as PC
 from whisper_git_tpu_torch.render import compose_kernel as CK
 from whisper_git_tpu_torch.render import frame as PF
+from whisper_git_tpu_torch.render import meshstate as PMS
 from whisper_git_tpu_torch.render import rasterizer as P
 from whisper_git_tpu_torch.render.blocks_kernel import render_tiles_blocks
 from whisper_git_tpu_torch.render.raster_kernel import render_tiles
@@ -675,8 +678,8 @@ def test_plan_rows_live_and_die_with_the_plan(app_fixture):
         starts, dyns, kops = PC.frame_tails(
             args[0], font, atlas, 480, 640, st["tiles_y"], st["tiles_x"],
             st["meta"])
-        return args, st, (tuple(args[1]), tuple(args[2]), dyns, kops,
-                          st["tiles_y"], cpu)
+        return args, st, (args[0], tuple(args[1]), tuple(args[2]), dyns,
+                          kops, st["tiles_y"], cpu)
 
     built = CK._static_row.built
     args, st, desc_args = frame(17.0)
@@ -684,7 +687,7 @@ def test_plan_rows_live_and_die_with_the_plan(app_fixture):
     n_static = sum(op[0] in ("img", "slab") for op in st["meta"][0])
     assert isinstance(rows, CK.PlanRows) and len(rows.rows) == n_static > 0
     assert CK._static_row.built == built + n_static
-    assert rows.serves(desc_args[0], desc_args[1], cpu)
+    assert rows.serves(desc_args[1], desc_args[2], cpu)
     # a plan hit: the plan's own rows, none built by the dispatch or by the
     # frame's descriptors, which come out as if built afresh
     args2, st2, desc_args2 = frame(34.0)
@@ -700,7 +703,238 @@ def test_plan_rows_live_and_die_with_the_plan(app_fixture):
     assert len(PC._PLAN_CACHE) == 2 and st3["rows"] is not rows
     n3 = sum(op[0] in ("img", "slab") for op in st3["meta"][0])
     assert CK._static_row.built == built + 2 * n_static + n3
-    assert st3["rows"].serves(desc_args3[0], desc_args3[1], cpu)
-    assert not rows.serves(desc_args3[0], desc_args3[1], cpu)
+    assert st3["rows"].serves(desc_args3[1], desc_args3[2], cpu)
+    assert not rows.serves(desc_args3[1], desc_args3[2], cpu)
     # and the frame through `_compose_frame` takes them
     assert PC._compose_frame(*args3, **st3).shape == (480, 640, 4)
+
+
+# ---- the kernel reads the frame blob itself ----------------------------------------
+
+def _old_frame_tails(blob, font_tex, image_atlas, height, width, tiles_y,
+                     tiles_x, meta):
+    """`compose.frame_tails` as it was before the compose kernel read the
+    blob: every tail de-quantized and translated to its sub-grid with torch
+    ops on the blob's device, shape tails handed to the kernel as f32
+    tables, i32 bins and counts, glyph and image tails pre-rendered by the
+    blocks rasterizer. → (starts i32, dyns, kops), what `blend_plain`
+    takes."""
+    ops, dyn_meta, n_slabs = meta
+    starts = blob[:n_slabs].int()
+    fo = n_slabs
+    dyns = {}
+    for li, (dyn_caps, dyn_ks, c0, c1) in enumerate(dyn_meta):
+        ts = c1 - c0
+        Tsub = tiles_y * ts
+        x0px = c0 * PC.TILE_W
+        sub_w = min(ts * PC.TILE_W, width - x0px)
+        dyn_tables = None
+        if sum(dyn_caps):
+            nwords = sum(dyn_caps[PF._PART_CLS[name]] * cols
+                         for name, cols, _ in P._PART_SPECS)
+            dyn_tables = PF._dequant_parts(blob[fo:fo + nwords], dyn_caps)
+            if x0px:
+                dyn_tables = PF._shift_parts(dyn_tables, torch.tensor(
+                    [float(-x0px), 0.0, -1e6, -1e6, 1e6, 1e6],
+                    dtype=torch.float32, device=blob.device))
+            fo += nwords
+        for ci in range(3):
+            k = dyn_ks[ci]
+            if k == 0:
+                continue
+            b = blob[fo:fo + Tsub * k].reshape(Tsub, k).int()
+            fo += Tsub * k
+            if dyn_tables is None or sub_w <= 0:
+                continue
+            tabs = tuple(dyn_tables[j] for j in PC._CLS_TBL[ci])
+            cnt = (b >= 0).sum(dim=1, dtype=torch.int32)
+            if ci == 0:
+                dyns[(li, ci)] = (tabs[0].contiguous(), tabs[1].contiguous(),
+                                  b, cnt)
+            else:
+                dyns[(li, ci)] = PC._render_layer(
+                    PC._single_class_blocks(ci, (tabs, b, None, cnt)),
+                    font_tex, image_atlas, tiles_y, ts, height, sub_w)
+    kops = []
+    for op in ops:
+        if op[0] == "dyn":
+            li, ci = op[1], op[2]
+            if (li, ci) not in dyns:
+                continue
+            c0, c1 = dyn_meta[li][2], dyn_meta[li][3]
+            kops.append(("dyni", li, ci, c0, c1 - c0) if ci == 0
+                        else ("dyn", li, ci, c0))
+        else:
+            kops.append(op)
+    return starts, dyns, tuple(kops)
+
+
+def _dots_scene(port, lead: float):
+    """Three volatile dots 128 px apart after `lead` px over the
+    background: shapes alone in the tail, its sub-grid from the dots'
+    first tile column on."""
+    from whisper_git_tpu.ui import rect, row, spacer, stack
+
+    ui = stack(
+        rect(width="fill", height="fill", fill=DARK.background),
+        row(spacer(lead),
+            *[el for x in range(3) for el in
+              (rect(width=12, height=12, radius=6,
+                    fill=(0.9, 0.6, 0.2, 0.9), volatile=True),
+               spacer(116))],
+            width="fill", height=60),
+        width="fill", height="fill")
+    return port.compile(port.layout(ui, (512, 128)), (512, 128),
+                        DARK.background)
+
+
+def _image_tail_scene(port):
+    """A volatile image over the background: an image tail alone."""
+    from whisper_git_tpu.ui import image, rect, row, spacer, stack
+
+    tile = np.zeros((16, 16, 4), np.uint8)
+    tile[:, :, 0] = 220
+    tile[:, :, 3] = 255
+    ui = stack(rect(width="fill", height="fill", fill=DARK.background),
+               row(spacer(300), image(tile, width=16, height=16,
+                                      volatile=True),
+                   width="fill", height=60),
+               width="fill", height="fill")
+    return port.compile(port.layout(ui, (512, 320)), (512, 320),
+                        DARK.background)
+
+
+def _glyph_tail_scene(port):
+    """The synthetic window scene with a volatile tail of shapes and
+    glyphs, at a whole-pixel offset so that it composes."""
+    scene = synthetic_scene("volatile", 0, port.regular,
+                            port.regular.texture.shape[0])
+    scene.windows = [dataclasses.replace(w, dy=float(int(w.dy)))
+                     for w in scene.windows]
+    return scene
+
+
+TAIL_FIXTURES = ("shapes at column 0", "shapes off column 0", "glyphs",
+                 "image", "glyphs on a mesh of two")
+
+
+def _tail_fixture(name, port):
+    """→ (scene, image atlas, the render mesh to install or None, the op
+    kinds and a predicate on the shape tails' first columns that the
+    fixture must show)."""
+    if name == "shapes at column 0":
+        return (_dots_scene(port, 20.0), port.image_atlas_device(), None,
+                {"img", "dyni"}, lambda c0s: c0s == {0})
+    if name == "shapes off column 0":
+        return (_dots_scene(port, 154.0), port.image_atlas_device(), None,
+                {"img", "dyni"}, lambda c0s: min(c0s) >= 1)
+    if name == "image":
+        return (_image_tail_scene(port), port.image_atlas_device(), None,
+                {"img", "dyn"}, lambda c0s: not c0s)
+    scene = _glyph_tail_scene(port)
+    mesh = None if name == "glyphs" else PM.make_mesh(
+        2, devices=[torch.device("cpu")] * 2)
+    return (scene, torch.from_numpy(scene.image_atlas), mesh,
+            {"img", "slab", "dyni", "dyn"}, lambda c0s: bool(c0s))
+
+
+@pytest.mark.parametrize("name", TAIL_FIXTURES)
+def test_plain_on_the_blob_is_the_old_decode_and_blend(name):
+    """A composed frame whose plain compose reads the frame blob itself
+    (`compose_tiles_plain` through `_compose_frame`) against the same blob
+    decoded as the compose path did before (`_old_frame_tails`) and
+    blended by the plain blend: byte for byte, for a shape tail at tile
+    column 0 and off it, a glyph and an image tail, and on a mesh of two
+    CPU devices."""
+    port = Renderer("cpu")
+    _fresh()
+    scene, atlas, mesh, kinds, at_columns = _tail_fixture(name, port)
+    font = port.font_tex_device()
+    PMS.set_render_mesh(mesh)
+    try:
+        args, st = PC.prepare_compose_dispatch(scene, font, atlas)
+        got = PC._compose_frame(*args, **st)
+        starts, dyns, kops = _old_frame_tails(
+            args[0], font, atlas, st["height"], st["width"], st["tiles_y"],
+            st["tiles_x"], st["meta"])
+    finally:
+        PMS.set_render_mesh(None)
+    assert {op[0] for op in kops} == kinds
+    assert at_columns({op[3] for op in kops if op[0] == "dyni"})
+    if mesh is not None:
+        images, slabs = args[1][0], args[2][0]
+    else:
+        images, slabs = args[1], args[2]
+    want = CK.blend_plain(starts, tuple(images), tuple(slabs), dyns,
+                          ops=kops, tiles_y=st["tiles_y"],
+                          tiles_x=st["tiles_x"],
+                          background=st["background"], height=st["height"],
+                          width=st["width"])
+    assert got.shape == want.shape == (scene.height, scene.width, 4)
+    assert torch.equal(got, want)
+
+
+class _CountOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the ATen ops dispatched while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("name", ("shapes off column 0", "glyphs"))
+def test_frame_tails_launches_nothing_for_a_shape_tail(name):
+    """A tail of shapes alone is host arithmetic: `frame_tails` dispatches
+    no ATen op (on a card: launches no kernel); a glyph tail still runs its
+    pre-render through the blocks rasterizer."""
+    port = Renderer("cpu")
+    _fresh()
+    scene, atlas, _, kinds, _ = _tail_fixture(name, port)
+    font = port.font_tex_device()
+    args, st = PC.prepare_compose_dispatch(scene, font, atlas)
+    with _CountOps() as seen:
+        starts, dyns, kops = PC.frame_tails(
+            args[0], font, atlas, st["height"], st["width"],
+            st["tiles_y"], st["tiles_x"], st["meta"])
+    assert {op[0] for op in kops} == kinds
+    assert starts == slice(0, st["meta"][2])
+    for op in kops:
+        if op[0] == "dyni":
+            assert all(isinstance(v, int) for v in dyns[(op[1], op[2])])
+    if "dyn" in kinds:
+        assert seen.ops, "the glyph tail was not pre-rendered"
+    else:
+        assert seen.ops == []
+
+
+@pytest.mark.parametrize("name", TAIL_FIXTURES[:4] + ("history",))
+def test_dyn_layer_packs_each_bins_row_first(name, app_fixture):
+    """The compose kernel walks a shape tail's bins row up to its first
+    −1: `_dyn_layer` (through `_pack_frame_blob`) puts every row's entries
+    first, with only −1 after them, in every class."""
+    port = app_fixture[3]
+    _fresh()
+    scenes = ([_scene(app_fixture, off) for off in (0.0, 17.0, 203.0)]
+              if name == "history" else [_tail_fixture(name, port)[0]])
+    rows = 0
+    for scene in scenes:
+        ty, tx = -(-scene.height // 64), -(-scene.width // 128)
+        for li, lb in enumerate(scene.layers):
+            _, bins, (caps, ks, c0, c1) = PF._dyn_layer(lb, li, ty, tx,
+                                                        subgrid=True)
+            fo = 0
+            for k in ks:
+                if not k:
+                    continue
+                b = bins[fo:fo + ty * (c1 - c0) * k].reshape(-1, k)
+                fo += b.size
+                empty = b < 0
+                # once a slot is empty, every later slot of its row is
+                assert (empty[:, 1:] >= empty[:, :-1]).all()
+                rows += int((~empty).any(axis=1).sum())
+    _fresh()   # the buckets' high-water marks this test raised
+    assert rows > 0, "no tail had a bin entry"

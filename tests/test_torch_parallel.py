@@ -394,7 +394,7 @@ def test_plain_k2_slices_are_the_rows_of_the_whole(port_renderer, kind,
 @pytest.mark.parametrize("case", ["layers", "tails", "windowless"])
 def test_plain_k3_slices_are_the_rows_of_the_whole(case):
     a = compose_args_to(synthetic_compose(case, 5), "cpu")
-    pos = (a.pop("starts"), tuple(a.pop("images")), tuple(a.pop("slabs")),
+    pos = (a.pop("blob"), tuple(a.pop("images")), tuple(a.pop("slabs")),
            a.pop("dyns"))
     whole = CK.compose_tiles(*pos, **a)
     ty, height = a["tiles_y"], a["height"]

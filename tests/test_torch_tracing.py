@@ -392,3 +392,48 @@ def test_scan_stats_keep_their_names_and_meaning():
         == dict(native.SCAN_STATS)
     native.reset_scan_stats()
     assert tracing.counters()["scan.quick_certain"] == 0
+
+
+def _dots_scene(port):
+    """Three volatile dots over the background: a tail of shapes alone."""
+    from whisper_git_tpu_torch.ui import rect, row, spacer, stack
+    from whisper_git_tpu_torch.ui.theme import DARK
+
+    ui = stack(rect(width="fill", height="fill", fill=DARK.background),
+               row(spacer(154),
+                   *[el for _ in range(3) for el in
+                     (rect(width=12, height=12, radius=6,
+                           fill=(0.9, 0.6, 0.2, 0.9), volatile=True),
+                      spacer(116))],
+                   width="fill", height=60),
+               width="fill", height="fill")
+    return port.compile(port.layout(ui, (512, 128)), (512, 128),
+                        DARK.background)
+
+
+@pytest.mark.parametrize("tail", ("shapes", "glyphs"))
+def test_composed_frames_count_their_tails(port, tail):
+    """Over N steady composed frames, a tail of shapes alone counts one
+    tail decoded by K3 from the blob a frame and none pre-rendered; the
+    volatile scene (a tail of shapes and glyphs on its first layer, one of
+    shapes on its second) counts two inline and one pre-rendered a
+    frame."""
+    if tail == "shapes":
+        scene, want = _dots_scene(port), (1, 0)
+    else:
+        scene = synthetic_scene("volatile", 0, port.regular,
+                                port.regular.texture.shape[0])
+        scene.windows = [dataclasses.replace(w, dy=float(int(w.dy)))
+                         for w in scene.windows]
+        want = (2, 1)
+    atlas = torch.from_numpy(scene.image_atlas)
+    PC.clear_caches()
+    P.render_scene_device(scene, port.font_tex_device(), atlas)
+    n = 5
+    c0 = tracing.counters()
+    for _ in range(n):
+        P.render_scene_device(scene, port.font_tex_device(), atlas)
+    d = _delta(c0)
+    assert d["frames.composed"] == d["compose.plan_hits"] == n
+    assert d.get("compose.tails_inline", 0) == want[0] * n
+    assert d.get("compose.tails_prerendered", 0) == want[1] * n

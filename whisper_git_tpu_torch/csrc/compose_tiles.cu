@@ -11,12 +11,14 @@
 //         to a tile-aligned rect at tile offset (ty0, tx0); tiles outside
 //         the rect skip it;
 //   slab  a cached scroll slab, (slab_h, w, 4) i16: the frame shows its
-//         rows [start, start + height), start read from `starts` (the only
-//         value that changes on a pure scroll), masked to the window's y
-//         clip on pixel centres (the x clip is baked into its pixels);
+//         rows [start, start + height), start read as an i16 of the frame
+//         blob (the only value that changes on a pure scroll), masked to
+//         the window's y clip on pixel centres (the x clip is baked into
+//         its pixels);
 //   dyni  a volatile shape tail rasterized here with `shape_step` over
-//         per-frame bins of a sub-grid of tile columns [c0, c0 + ts), its
-//         tables translated to sub-grid-local x;
+//         per-frame bins of a sub-grid of tile columns [c0, c0 + ts), read
+//         from the frame blob as the host packed it: i16 tables and bins,
+//         each value de-quantized here and moved to sub-grid-local x;
 //   dyn   a volatile glyph or image tail pre-rendered by the blocks
 //         kernel, (h, w, 4) f32 over the same sub-grid columns.
 //
@@ -59,7 +61,18 @@
 //    column centres shifted to the sub-grid, with the command's extent in
 //    the same shifted coordinates; the library is built with --fmad=false,
 //    so `src + fb * (1 - a)` is a multiply and an add as in the plain
-//    PyTorch version.
+//    PyTorch version;
+//  * the frame blob is the kernel's input as the host uploaded it, so no
+//    pass over it runs before the launch: a tail command's 16 + 4 values
+//    are loaded as i16 and multiplied by the reciprocal of their column's
+//    scale, every scale a power of two, so the product is exact; the move
+//    to the sub-grid subtracts a multiple of TILE_W from values on a 1/8 px
+//    grid, exact too. A command's values are those the host's de-quantize
+//    and translate gave, bit for bit. A CTA's threads share one tile, so
+//    one bins row and every command in it: twenty threads decode a command
+//    into shared memory, a value each, and all read it by broadcast (a
+//    command decoded in every thread's registers spilled the variant with
+//    2 rows a thread: 26 to 62 us on an H100 at the history view's frame).
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -74,24 +87,33 @@ constexpr int OP_SLAB = 1;
 constexpr int OP_DYNI = 2;
 constexpr int OP_DYN = 3;
 constexpr float I16_INV = (float)(1.0 / 32767.0);
+// The reciprocals of the fixed-point scales of a shape command's 16 columns
+// (geometry at 1/8 px, colours at 1/8192: rasterizer._SHAPE_COL_SCALE) and
+// of its clip rect (1/4 px), as np.float32(1 / scale) gives them.
+__constant__ float SHAPE_INV[16] = {
+    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,
+    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8192.0f,
+    1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f,
+    1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8.0f};
+constexpr float CLIP_INV = 1.0f / 4.0f;
 constexpr int MAX_INLINE_OPS = 48;     // descriptors that ride in the launch
 constexpr int COMPOSE_THREADS = 128;   // 64 pixel pairs across, 2 rows
 constexpr int PAIRS = TILE_W / 2;
 
 // One op. Mirrored by _OP_DESC in render/compose_kernel.py.
 struct ComposeOp {
-  const void* src;      // img, slab: (h, w, 4) i16 | dyn: (h, w, 4) f32 |
-                        // dyni: shapes (cap, 16) f32
-  const float* clips;   // dyni: shape clips (cap, 4)
-  const int* bins;      // dyni: (tiles_y * ts, k), -1 = empty slot
-  const int* counts;    // dyni: (tiles_y * ts,) slots to walk
+  const void* src;      // img, slab: (h, w, 4) i16 | dyn: (h, w, 4) f32
   int kind;
   int h, w;             // img, slab, dyn: pixel extent of src
   int ty0, tx0;         // img: tile offset of the rect | dyni, dyn: tx0 = c0
   int ts;               // dyni, dyn: tile columns of the sub-grid
   int k;                // dyni: bins row width
-  int slab;             // slab: index into starts
+  int slab;             // slab: index into the blob's starts
   float cy0, cy1;       // slab: y clip on pixel centres, inclusive
+  // dyni: element offsets into the blob of the tail's shapes (cap, 16),
+  // clips (cap, 4) and bins (tiles_y * ts, k), -1 an empty slot, a row's
+  // entries first
+  int shapes, clips, bins;
 };
 
 // Mirrored by _ComposeParams in render/compose_kernel.py.
@@ -99,7 +121,8 @@ struct ComposeParams {
   const ComposeOp* ops;   // device memory, z order; read when
   int n_ops;              // n_ops > MAX_INLINE_OPS
   int n_starts;
-  const int* starts;      // (n_starts,) first slab row of the frame
+  const short* blob;      // the frame's i16 blob
+  int starts;             // its offset of the (n_starts,) first slab rows
   float bg_r, bg_g, bg_b;
   int tiles_x, tiles_y, height, width;
   int row0;               // the first tile row launched
@@ -169,7 +192,7 @@ __device__ __forceinline__ void fetch(const ComposeOp& d,
   } else if (d.kind == OP_SLAB) {
     lx = at.ox + at.col;
     if (lx >= w || d.slab >= p.n_starts) return;
-    y0 = p.starts[d.slab] + at.oy;
+    y0 = (int)__ldg(p.blob + p.starts + d.slab) + at.oy;
     cy0 = d.cy0;
     cy1 = d.cy1;
   } else {
@@ -220,6 +243,7 @@ __global__ void __launch_bounds__(COMPOSE_THREADS,
                                   N_ROWS <= 2 ? 6 : N_ROWS <= 4 ? 4 : 2)
     compose_tiles_kernel(const __grid_constant__ ComposeParams p) {
   using PX = PixelsT<N_ROWS, 2>;
+  __shared__ float s_cmd[20];   // a tail command's values, then its clip
   constexpr int STRIP_H = 2 * N_ROWS;
   constexpr int STRIPS = TILE_H / STRIP_H;
   const int t = blockIdx.x / STRIPS, q = blockIdx.x % STRIPS;
@@ -281,24 +305,37 @@ __global__ void __launch_bounds__(COMPOSE_THREADS,
       const ComposeOp d = op_at(p, b);
       if (tj >= d.tx0 && tj < d.tx0 + d.ts && ti < p.tiles_y) {
         const int tsub = ti * d.ts + (tj - d.tx0);
-        const int n = min(d.counts[tsub], d.k);
-        const int* row = d.bins + (size_t)tsub * d.k;
-        const float* shapes = reinterpret_cast<const float*>(d.src);
-        const float* clips = d.clips;
-        // The tail's tables and bins live in the sub-grid's coordinates,
-        // and so does each command's extent.
+        const short* row = p.blob + d.bins + (size_t)tsub * d.k;
+        // The tail's bins live in the sub-grid's coordinates; its tables
+        // are moved there as they are read, and so is each command's
+        // extent.
         const float shift = (float)(d.tx0 * TILE_W);
         f0.px = px0 - shift;
         f1.px = px1 - shift;
 #pragma unroll 1
-        for (int k = 0; k < n; ++k) {
-          const int idx = row[k];
-          if (idx < 0) continue;
-          const float* c = shapes + (size_t)idx * 16;
-          const float* clip = clips + (size_t)idx * 4;
-          const Extent e = command_extent(0, c, clip);
-          shape_step(f0, c, clip, e);
-          shape_step(f1, c, clip, e);
+        for (int k = 0; k < d.k; ++k) {
+          const int idx = __ldg(row + k);
+          if (idx < 0) break;   // the host packs a row's entries first
+          // Twenty of the CTA's threads decode the command, a value each.
+          __syncthreads();      // the last command's values are read
+          const int j = threadIdx.x;
+          if (j < 20) {
+            const short* cmd = p.blob + d.shapes + (size_t)idx * 16;
+            float v = j < 16
+                ? (float)__ldg(cmd + j) * SHAPE_INV[j]
+                : (float)__ldg(p.blob + d.clips + (size_t)idx * 4 + j - 16)
+                      * CLIP_INV;
+            // A capsule (type 1) moves both end points, a rect its origin.
+            if (j == 1 || j == 16 || j == 18
+                || (j == 3 && (float)__ldg(cmd) * SHAPE_INV[0] == 1.0f)) {
+              v -= shift;
+            }
+            s_cmd[j] = v;
+          }
+          __syncthreads();
+          const Extent e = command_extent(0, s_cmd, s_cmd + 16);
+          shape_step(f0, s_cmd, s_cmd + 16, e);
+          shape_step(f1, s_cmd, s_cmd + 16, e);
         }
         f0.px = px0;
         f1.px = px1;

@@ -22,9 +22,11 @@ frames, the *rendered pixels* of almost everything are unchanged too.
     transparent sub-grid of tile columns.
   * The frame is assembled by `compose_kernel.compose_tiles` (K3), which
     blends the layers in the plan's z order. Per frame the host uploads
-    one small i16 blob (slab starts, quantized tails and their bins); the
-    kernel's op descriptors ride in its launch, those of the cached layers
-    built once a plan.
+    one small i16 blob (slab starts, quantized tails and their bins), and
+    K3 reads it as it lies: the starts, and a shape tail's tables and bins
+    (the host hands it their offsets), so a frame of shapes alone is one
+    launch; the kernel's op descriptors ride in its launch, those of the
+    cached layers built once a plan.
 
 Cached layers are rendered by `blocks_kernel.render_tiles_blocks` (K2) over
 a transparent canvas and written by it as interleaved (h, w, 4) i16 fixed
@@ -336,9 +338,10 @@ def _build_slab(w, ci, art, caps, font_tex, image_atlas, tiles_x, height,
 
 # ---------------------------------------------------------------------------
 # The per-frame step: ONE small i16 upload (slab starts + quantized
-# volatile tails + their bins), the tails' tables de-quantized on the
-# device, and ONE compose-kernel launch. Per-frame traffic stays flat no
-# matter how much is cached.
+# volatile tails + their bins) and ONE compose-kernel launch, which reads
+# the blob itself; only a glyph or image tail is de-quantized and
+# pre-rendered before it. Per-frame traffic stays flat no matter how much
+# is cached.
 # ---------------------------------------------------------------------------
 
 _DYN_PACK_CACHE: dict = {}
@@ -386,15 +389,15 @@ def _pack_frame_blob(scene, slab_starts, tiles_y: int, tiles_x: int):
 
 def frame_tails(blob: torch.Tensor, font_tex, image_atlas, height: int,
                 width: int, tiles_y: int, tiles_x: int, meta: tuple):
-    """The device half of a frame up to the kernel: from the i16 blob on
-    the device, → (starts (n_slabs,) i32, dyns, kops), the arguments of
-    `compose_tiles`. Each layer's tail is de-quantized and translated to
-    its sub-grid of tile columns [c0, c1) (the bins were built there);
-    shape tails go to the kernel as tables and bins ("dyni"), glyph and
-    image tails are pre-rendered by the blocks kernel over a transparent
-    sub-grid ("dyn")."""
+    """The arguments of `compose_tiles` beside the blob → (starts, dyns,
+    kops): `starts` the slice of the blob that holds the slab starts, and
+    each layer's tail over its sub-grid of tile columns [c0, c1) (the bins
+    were built there). A shape tail ("dyni") is host arithmetic alone: the
+    offsets of its tables and bins in the blob, which the kernel decodes
+    as it reads them. A glyph or image tail ("dyn") is de-quantized here,
+    translated to its sub-grid and pre-rendered by the blocks kernel over
+    a transparent sub-grid."""
     ops, dyn_meta, n_slabs = meta
-    starts = blob[:n_slabs].int()
     fo = n_slabs
     dyns = {}
     for li, (dyn_caps, dyn_ks, c0, c1) in enumerate(dyn_meta):
@@ -402,35 +405,41 @@ def frame_tails(blob: torch.Tensor, font_tex, image_atlas, height: int,
         Tsub = tiles_y * ts
         x0px = c0 * TILE_W
         sub_w = min(ts * TILE_W, width - x0px)
+        tables_at = fo
+        nwords = sum(dyn_caps[F._PART_CLS[name]] * cols
+                     for name, cols, _ in R._PART_SPECS)
+        fo += nwords
         dyn_tables = None
-        if sum(dyn_caps):
-            nwords = sum(dyn_caps[F._PART_CLS[name]] * cols
-                         for name, cols, _ in R._PART_SPECS)
-            dyn_tables = F._dequant_parts(blob[fo:fo + nwords], dyn_caps)
-            if x0px:
-                # A pure translate: the clip bounds are wide open.
-                dyn_tables = F._shift_parts(dyn_tables, _shift_row(
-                    float(-x0px), 0.0, (-1e6, -1e6, 1e6, 1e6), blob.device))
-            fo += nwords
         for ci in range(3):
             k = dyn_ks[ci]
             if k == 0:
                 continue
-            b = blob[fo:fo + Tsub * k].reshape(Tsub, k).int()
+            bins_at = fo
             fo += Tsub * k
-            if dyn_tables is None or sub_w <= 0:
+            if not sum(dyn_caps) or sub_w <= 0:
                 continue
-            tabs = tuple(dyn_tables[j] for j in _CLS_TBL[ci])
-            cnt = (b >= 0).sum(dim=1, dtype=torch.int32)
             if ci == 0:
                 # Shapes (thumbs, pulse dots, drag ghosts: the dominant
                 # volatile content) are rasterized inline by the kernel.
-                dyns[(li, ci)] = (tabs[0].contiguous(), tabs[1].contiguous(),
-                                  b, cnt)
-            else:
-                dyns[(li, ci)] = _render_layer(
-                    _single_class_blocks(ci, (tabs, b, None, cnt)),
-                    font_tex, image_atlas, tiles_y, ts, height, sub_w)
+                dyns[(li, ci)] = (tables_at, tables_at + dyn_caps[0] * 16,
+                                  bins_at, dyn_caps[0], k)
+                COUNTERS["compose.tails_inline"] += 1
+                continue
+            if dyn_tables is None:
+                dyn_tables = F._dequant_parts(
+                    blob[tables_at:tables_at + nwords], dyn_caps)
+                if x0px:
+                    # A pure translate: the clip bounds are wide open.
+                    dyn_tables = F._shift_parts(dyn_tables, _shift_row(
+                        float(-x0px), 0.0, (-1e6, -1e6, 1e6, 1e6),
+                        blob.device))
+            b = blob[bins_at:bins_at + Tsub * k].reshape(Tsub, k).int()
+            tabs = tuple(dyn_tables[j] for j in _CLS_TBL[ci])
+            cnt = (b >= 0).sum(dim=1, dtype=torch.int32)
+            dyns[(li, ci)] = _render_layer(
+                _single_class_blocks(ci, (tabs, b, None, cnt)),
+                font_tex, image_atlas, tiles_y, ts, height, sub_w)
+            COUNTERS["compose.tails_prerendered"] += 1
     kops = []
     for op in ops:
         if op[0] == "dyn":
@@ -444,7 +453,7 @@ def frame_tails(blob: torch.Tensor, font_tex, image_atlas, height: int,
                 kops.append(("dyn", li, ci, c0))
         else:
             kops.append(op)
-    return starts, dyns, tuple(kops)
+    return slice(0, n_slabs), dyns, tuple(kops)
 
 
 def _compose_frame(blob, images, slabs, font_tex, image_atlas,
@@ -458,27 +467,28 @@ def _compose_frame(blob, images, slabs, font_tex, image_atlas,
     ("dyn", li, ci): that volatile tail, from the blob.
     `rows`: the plan's descriptor rows of its "img" and "slab" ops.
     Under `mesh`, `images`, `slabs` and `rows` hold one entry a shard (the
-    plan's layers on that shard's device), and each shard blends its slice
-    of tile rows of the row-padded grid; the slices are gathered.
+    plan's layers on that shard's device), each shard reads the blob (and
+    any pre-rendered tail) copied to its device and blends its slice of
+    tile rows of the row-padded grid; the slices are gathered.
     → the (height, width, 4) u8 frame on the blob's device."""
     starts, dyns, kops = frame_tails(blob, font_tex, image_atlas, height,
                                      width, tiles_y, tiles_x, meta)
     if mesh is None:
-        return compose_tiles(starts, tuple(images), tuple(slabs), dyns,
-                             ops=kops, tiles_y=tiles_y, tiles_x=tiles_x,
-                             background=background, height=height,
-                             width=width, rows=rows)
+        return compose_tiles(blob, tuple(images), tuple(slabs), dyns,
+                             starts=starts, ops=kops, tiles_y=tiles_y,
+                             tiles_x=tiles_x, background=background,
+                             height=height, width=width, rows=rows)
     _, ty_pad = F._sharded_tile_rows(tiles_y, tiles_x, mesh)
     local = ty_pad // mesh.size
     parts = []
     for s, dev in enumerate(mesh.flat):
         with span("shard", card=dev.index):
-            starts_s, dyns_s = F.replicate((starts, dyns), dev)
+            blob_s, dyns_s = F.replicate((blob, dyns), dev)
             parts.append(compose_tiles(
-                starts_s, images[s], slabs[s], dyns_s, ops=kops,
-                tiles_y=tiles_y, tiles_x=tiles_x, background=background,
-                height=height, width=width, n_rows=local, row0=s * local,
-                rows=rows[s]))
+                blob_s, images[s], slabs[s], dyns_s, starts=starts,
+                ops=kops, tiles_y=tiles_y, tiles_x=tiles_x,
+                background=background, height=height, width=width,
+                n_rows=local, row0=s * local, rows=rows[s]))
     return F.gather(parts, blob.device)
 
 

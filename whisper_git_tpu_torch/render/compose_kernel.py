@@ -15,12 +15,18 @@ one quantize clip(x·255 + 0.5), alpha 255. The layouts are the port's own:
           edge), and what lies beyond counts as transparent
   slabs   tuple of (slab_h, w, 4) i16 scroll slabs; the frame shows rows
           [start, start + height) of a slab
-  starts  (n_slabs,) i32, the first slab row of this frame, a slab
-  dyns    dict (li, ci) -> (shapes f32 (cap, 16), shape_clips f32 (cap, 4),
-          bins i32 (tiles_y·ts, k), counts i32 (tiles_y·ts,)) for a shape
-          tail rasterized inline (op "dyni"), in the coordinates of the
-          sub-grid of tile columns [c0, c0 + ts); or an (h, w, 4) f32
-          premultiplied layer pre-rendered over that sub-grid (op "dyn")
+  blob    the frame's i16 blob (`compose._pack_frame_blob`), read by the
+          kernel as it lies on the device
+  starts  a slice of the blob: its (n_slabs,) i16 first slab rows of this
+          frame, a slab
+  dyns    dict (li, ci) -> (shapes, clips, bins, cap, k) for a shape tail
+          rasterized inline (op "dyni"): the element offsets in the blob of
+          its i16 tables, shapes (cap, 16) and clips (cap, 4) at the
+          fixed-point scales of `rasterizer._PART_SPECS` in frame
+          coordinates, and of its bins (tiles_y·ts, k), −1 an empty slot, a
+          row's entries first, over the sub-grid of tile columns
+          [c0, c0 + ts); or an (h, w, 4) f32 premultiplied layer
+          pre-rendered over that sub-grid (op "dyn")
   ops     z-ordered tuple of ("img", i, ty0, tx0), ("slab", j, clip),
           ("dyni", li, ci, c0, ts), ("dyn", li, ci, c0); a "dyni" or "dyn"
           whose key is not in `dyns` is skipped
@@ -47,9 +53,12 @@ rows of a tile (eight CTAs a tile), so the tiles under every layer spread
 over more SMs; the op list is walked one op ahead, the next layer's loads
 in flight while this one is blended; up to `MAX_INLINE_OPS` op descriptors
 ride in the launch's parameter block by value (no allocation, no upload,
-no wait), a longer list goes through a device array; and the `img` and
+no wait), a longer list goes through a device array; the `img` and
 `slab` rows, fixed while a plan lives, are built and checked once a plan
-(`PlanRows`), so a frame packs only its tails' rows.
+(`PlanRows`), so a frame packs only its tails' rows; and the kernel reads
+the frame blob itself (the slab starts, a shape tail's i16 tables,
+de-quantized and moved to its sub-grid exactly, and its bins), so no
+device work precedes the launch.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ import torch
 
 from .. import tracing
 from . import raster_kernel as K
+from . import rasterizer as R
 
 TILE_H = K.TILE_H
 TILE_W = K.TILE_W
@@ -70,9 +80,16 @@ I16_SCALE = 32767.0
 _I16_INV = np.float32(1.0 / 32767.0)
 
 _KINDS = {"img": 0, "slab": 1, "dyni": 2, "dyn": 3}
-# Bytes the kernel loads at once from an op's source: an i16 or f32 pixel,
-# or one f32 of a shape table.
-_SRC_ALIGN = {"img": 8, "slab": 8, "dyni": 4, "dyn": 16}
+# Bytes the kernel loads at once from an op's source: an i16 or f32 pixel.
+# A "dyni" op has no source of its own; it reads i16 values of the blob.
+_SRC_ALIGN = {"img": 8, "slab": 8, "dyni": 1, "dyn": 16}
+
+# The reciprocals of the fixed-point scales of a shape command's columns
+# and of its clip rect, as the kernel holds them (`SHAPE_INV`, `CLIP_INV`
+# in csrc/compose_tiles.cu): every scale is a power of two, so a value
+# times its reciprocal is exact.
+SHAPE_INV = (np.float32(1.0) / R._SHAPE_COL_SCALE).astype(np.float32)
+CLIP_INV = np.float32(1.0 / 4.0)
 
 
 # ---------------------------------------------------------------------------
@@ -114,14 +131,61 @@ def slice_rows(n_rows, row0, tiles_y: int, height: int) -> tuple:
                                     - row0 * TILE_H, 0)
 
 
-def compose_tiles_plain(starts, images, slabs, dyns, *, ops: tuple,
-                        tiles_y: int, tiles_x: int, background: tuple,
-                        height: int, width: int, n_rows: int | None = None,
-                        row0=None) -> torch.Tensor:
-    """The plain version of `compose_tiles`: the same ops in the same
-    order on whole-frame tensors, or on a slice's rows (a region blend for
-    "img" and "dyn", a row slice for "slab", the plain shape command of
-    `raster_kernel` on the sub-grid's own tile grid for "dyni")."""
+def decode_tail(blob: torch.Tensor, tail: tuple, c0: int, ts: int,
+                tiles_y: int) -> tuple:
+    """A shape tail of the blob (`tail`: the offsets of a "dyni" entry of
+    `dyns`) over its sub-grid from tile column `c0`, with torch ops →
+    (shapes f32 (cap, 16), clips f32 (cap, 4), bins i32 (tiles_y·ts, k),
+    counts i32 (tiles_y·ts,), the non-negative slots a row). The values
+    are those the kernel computes as it reads the blob: each i16 times its
+    column's reciprocal scale, and x moved by −c0·TILE_W (a capsule's two
+    end points, a rect's origin, the clip's two x bounds)."""
+    shapes_at, clips_at, bins_at, cap, k = tail
+    device = blob.device
+    shapes = blob[shapes_at:shapes_at + cap * 16].reshape(cap, 16).float() \
+        * torch.from_numpy(SHAPE_INV).to(device)
+    clips = blob[clips_at:clips_at + cap * 4].reshape(cap, 4).float() \
+        * torch.tensor(CLIP_INV, device=device)
+    x0 = float(c0 * TILE_W)
+    if x0:
+        seg = shapes[:, 0] == 1.0
+        shapes[:, 1] -= x0
+        shapes[:, 3] = torch.where(seg, shapes[:, 3] - x0, shapes[:, 3])
+        clips[:, 0] -= x0
+        clips[:, 2] -= x0
+    n = tiles_y * ts
+    bins = blob[bins_at:bins_at + n * k].reshape(n, k).int()
+    return shapes, clips, bins, (bins >= 0).sum(dim=1, dtype=torch.int32)
+
+
+def compose_tiles_plain(blob, images, slabs, dyns, *, starts: slice,
+                        ops: tuple, tiles_y: int, tiles_x: int,
+                        background: tuple, height: int, width: int,
+                        n_rows: int | None = None, row0=None
+                        ) -> torch.Tensor:
+    """The plain version of `compose_tiles`: the blob's slab starts and
+    shape tails decoded with torch ops (`decode_tail`), then the same ops
+    in the same order (`blend_plain`)."""
+    decoded = dict(dyns)
+    for op in ops:
+        if op[0] == "dyni" and (op[1], op[2]) in dyns:
+            decoded[(op[1], op[2])] = decode_tail(
+                blob, dyns[(op[1], op[2])], op[3], op[4], tiles_y)
+    return blend_plain(blob[starts].int(), images, slabs, decoded, ops=ops,
+                       tiles_y=tiles_y, tiles_x=tiles_x,
+                       background=background, height=height, width=width,
+                       n_rows=n_rows, row0=row0)
+
+
+def blend_plain(starts, images, slabs, dyns, *, ops: tuple, tiles_y: int,
+                tiles_x: int, background: tuple, height: int, width: int,
+                n_rows: int | None = None, row0=None) -> torch.Tensor:
+    """The blend of `compose_tiles_plain` on decoded inputs: `starts`
+    (n_slabs,) i32, and a "dyni" entry of `dyns` as `decode_tail` gives
+    it. The same ops in the same order on whole-frame tensors, or on a
+    slice's rows (a region blend for "img" and "dyn", a row slice for
+    "slab", the plain shape command of `raster_kernel` on the sub-grid's
+    own tile grid for "dyni")."""
     device = starts.device
     r0, r1, out_h = slice_rows(n_rows, row0, tiles_y, height)
     y_base = r0 * TILE_H   # frame row of fb's first
@@ -185,18 +249,19 @@ def compose_tiles_plain(starts, images, slabs, dyns, *, ops: tuple,
 # The CUDA kernel: build, bind, launch.
 # ---------------------------------------------------------------------------
 
-# Mirror of `ComposeOp` in csrc/compose_tiles.cu (pointers as u64).
-_OP_DESC = np.dtype([("src", "<u8"), ("clips", "<u8"), ("bins", "<u8"),
-                     ("counts", "<u8"), ("kind", "<i4"), ("h", "<i4"),
+# Mirror of `ComposeOp` in csrc/compose_tiles.cu (the pointer as u64; "pad"
+# is the struct's tail padding to 8 bytes).
+_OP_DESC = np.dtype([("src", "<u8"), ("kind", "<i4"), ("h", "<i4"),
                      ("w", "<i4"), ("ty0", "<i4"), ("tx0", "<i4"),
                      ("ts", "<i4"), ("k", "<i4"), ("slab", "<i4"),
-                     ("cy0", "<f4"), ("cy1", "<f4")])
+                     ("cy0", "<f4"), ("cy1", "<f4"), ("shapes", "<i4"),
+                     ("clips", "<i4"), ("bins", "<i4"), ("pad", "<i4")])
 # The same row packed field by field, in `_OP_DESC.names` order: a frame
 # joins its rows' bytes, which costs less than building a numpy array.
-_OP_PACK = struct.Struct("<4Q8i2f")
+_OP_PACK = struct.Struct("<Q8i2f4i")
 
 # Op descriptors that ride in the launch's parameter block by value
-# (MAX_INLINE_OPS in csrc/compose_tiles.cu: 48 x 72 B and the rest of the
+# (MAX_INLINE_OPS in csrc/compose_tiles.cu: 48 x 64 B and the rest of the
 # block stay under the 4 KB a launch may carry); a longer list goes through
 # an array in device memory.
 MAX_INLINE_OPS = 48
@@ -207,7 +272,8 @@ ROWS_PER_THREAD = 4
 class _ComposeParams(ctypes.Structure):
     """Mirror of `ComposeParams` in csrc/compose_tiles.cu."""
     _fields_ = [("ops", ctypes.c_void_p), ("n_ops", ctypes.c_int),
-                ("n_starts", ctypes.c_int), ("starts", ctypes.c_void_p),
+                ("n_starts", ctypes.c_int), ("blob", ctypes.c_void_p),
+                ("starts", ctypes.c_int),
                 ("bg_r", ctypes.c_float), ("bg_g", ctypes.c_float),
                 ("bg_b", ctypes.c_float),
                 ("tiles_x", ctypes.c_int), ("tiles_y", ctypes.c_int),
@@ -248,18 +314,18 @@ def _check_layer(t, label: str, dtype, device):
                          "non-empty (h, w, 4)")
 
 
-def _row(label: str, kind: str, src: int, clips: int = 0, bins: int = 0,
-         counts: int = 0, h: int = 0, w: int = 0, ty0: int = 0, tx0: int = 0,
-         ts: int = 0, k: int = 0, slab: int = 0, cy0: float = 0.0,
-         cy1: float = 0.0) -> bytes:
+def _row(label: str, kind: str, src: int = 0, h: int = 0, w: int = 0,
+         ty0: int = 0, tx0: int = 0, ts: int = 0, k: int = 0, slab: int = 0,
+         cy0: float = 0.0, cy1: float = 0.0, shapes: int = 0, clips: int = 0,
+         bins: int = 0) -> bytes:
     """One descriptor's bytes (the fields of `_OP_DESC`, in its order), its
     source checked for the alignment the kernel's loads of that kind
     need."""
     if src % _SRC_ALIGN[kind]:
         raise ValueError(f"{_WHO}: {label} is not aligned to "
                          f"{_SRC_ALIGN[kind]} bytes")
-    return _OP_PACK.pack(src, clips, bins, counts, _KINDS[kind], h, w, ty0,
-                         tx0, ts, k, slab, cy0, cy1)
+    return _OP_PACK.pack(src, _KINDS[kind], h, w, ty0, tx0, ts, k, slab,
+                         cy0, cy1, shapes, clips, bins, 0)
 
 
 def _static_row(op: tuple, label: str, images, slabs, device) -> bytes:
@@ -304,13 +370,15 @@ class PlanRows:
                 and device == self.device)
 
 
-def op_descriptors(images, slabs, dyns, ops: tuple, tiles_y: int,
+def op_descriptors(blob, images, slabs, dyns, ops: tuple, tiles_y: int,
                    device, rows: PlanRows | None = None
                    ) -> tuple[np.ndarray, list]:
-    """The flat z-ordered descriptor array of `ops`, and every tensor it
-    points at (to be kept alive until the launch is enqueued). "img" and
-    "slab" rows come from `rows` where it was built for these very layers;
-    else they are built and checked here."""
+    """The flat z-ordered descriptor array of `ops` over the frame blob
+    `blob`, and every tensor it points at (to be kept alive until the
+    launch is enqueued). "img" and "slab" rows come from `rows` where it
+    was built for these very layers; else they are built and checked
+    here. A "dyni" row holds its tail's offsets in the blob, checked to lie
+    inside it."""
     out, keep = [], []
     kept = rows.rows if rows is not None and rows.serves(
         images, slabs, device) else {}
@@ -326,34 +394,23 @@ def op_descriptors(images, slabs, dyns, ops: tuple, tiles_y: int,
             out.append(row)
             keep.append((images if kind == "img" else slabs)[op[1]])
         elif kind == "dyni":
-            entry = dyns.get((op[1], op[2]))
-            if entry is None:
+            tail = dyns.get((op[1], op[2]))
+            if tail is None:
                 continue
-            shapes, sclips, bins, counts = entry
+            shapes, clips, bins, cap, k = tail
             c0, ts = op[3], op[4]
-            K.check_tensor(shapes, f"{label} shapes", torch.float32, device,
-                           2, _WHO)
-            K.check_tensor(sclips, f"{label} clips", torch.float32, device,
-                           2, _WHO)
-            K.check_tensor(bins, f"{label} bins", torch.int32, device, 2,
-                           _WHO)
-            K.check_tensor(counts, f"{label} counts", torch.int32, device,
-                           1, _WHO)
-            n = shapes.shape[0]
-            if tuple(shapes.shape) != (n, 16) \
-                    or tuple(sclips.shape) != (n, 4) \
-                    or bins.shape[0] != tiles_y * ts \
-                    or counts.shape[0] != tiles_y * ts or c0 < 0 or ts <= 0:
+            n = blob.shape[0]
+            if c0 < 0 or ts <= 0 or cap <= 0 or k <= 0 \
+                    or not 0 <= shapes <= n - cap * 16 \
+                    or not 0 <= clips <= n - cap * 4 \
+                    or not 0 <= bins <= n - tiles_y * ts * k:
                 raise ValueError(
-                    f"{_WHO}: {label}: shapes {tuple(shapes.shape)}, clips "
-                    f"{tuple(sclips.shape)}, bins {tuple(bins.shape)}, "
-                    f"counts {tuple(counts.shape)} for a {tiles_y}x{ts} "
-                    f"sub-grid at column {c0}")
-            out.append(_row(label, kind, src=shapes.data_ptr(),
-                            clips=sclips.data_ptr(), bins=bins.data_ptr(),
-                            counts=counts.data_ptr(), tx0=c0, ts=ts,
-                            k=bins.shape[1]))
-            keep += [shapes, sclips, bins, counts]
+                    f"{_WHO}: {label}: shapes at {shapes}, clips at {clips} "
+                    f"({cap} commands), bins at {bins} ({k} a row) for a "
+                    f"{tiles_y}x{ts} sub-grid at column {c0} do not lie in "
+                    f"a blob of {n}")
+            out.append(_row(label, kind, tx0=c0, ts=ts, k=k, shapes=shapes,
+                            clips=clips, bins=bins))
         else:
             layer = dyns.get((op[1], op[2]))
             if layer is None:
@@ -366,26 +423,30 @@ def op_descriptors(images, slabs, dyns, ops: tuple, tiles_y: int,
     return np.frombuffer(b"".join(out), dtype=_OP_DESC), keep
 
 
-def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
-            height, width, rows, r0=0, r1=None,
+def _launch(blob, starts, images, slabs, dyns, ops, tiles_y, tiles_x,
+            background, height, width, rows, r0=0, r1=None,
             out_h=None) -> torch.Tensor:
-    device = starts.device
+    device = blob.device
     K.check_frame_fits(height, width, tiles_y, tiles_x, _WHO)
-    K.check_tensor(starts, "starts", torch.int32, device, 1, _WHO)
-    if any(op[0] == "slab" and not 0 <= op[1] < starts.shape[0]
-           for op in ops):
+    K.check_tensor(blob, "blob", torch.int16, device, 1, _WHO)
+    s0, s1 = starts.start, starts.stop
+    if starts.step not in (None, 1) or not 0 <= s0 <= s1 <= blob.shape[0]:
+        raise ValueError(f"{_WHO}: starts {starts} is not a run of the "
+                         f"blob's {blob.shape[0]} values")
+    if any(op[0] == "slab" and not 0 <= op[1] < s1 - s0 for op in ops):
         raise ValueError(f"{_WHO}: a slab op has no entry in starts "
-                         f"({starts.shape[0]})")
+                         f"({s1 - s0})")
     build()
     lib = _LIB["lib"]
-    desc, keep = op_descriptors(images, slabs, dyns, ops, tiles_y, device,
-                                rows)
+    desc, keep = op_descriptors(blob, images, slabs, dyns, ops, tiles_y,
+                                device, rows)
     p = _ComposeParams()
     desc_dev = K.place_descriptors(p, "ops", "inline_ops", desc,
                                    MAX_INLINE_OPS, device)
     p.n_ops = len(desc)
-    p.n_starts = starts.shape[0]
-    p.starts = starts.data_ptr()
+    p.n_starts = s1 - s0
+    p.blob = blob.data_ptr()
+    p.starts = s0
     p.bg_r, p.bg_g, p.bg_b = (float(c) for c in background[:3])
     p.tiles_x, p.tiles_y = tiles_x, tiles_y
     p.height, p.width = height, width
@@ -400,37 +461,37 @@ def _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x, background,
         raise RuntimeError("compose_tiles kernel launch failed: "
                            + lib.compose_tiles_error_string(rc).decode())
     K.count_launch(compose_tiles, device)
-    # The layers, tails, starts and a device array of descriptors were
-    # alive up to here; the allocator hands their memory out again only to
-    # later work on this stream, which runs after the kernel.
+    # The blob, layers, tails and a device array of descriptors were alive
+    # up to here; the allocator hands their memory out again only to later
+    # work on this stream, which runs after the kernel.
     del keep, desc_dev
     return out
 
 
-def compose_tiles(starts: torch.Tensor, images: tuple, slabs: tuple,
-                  dyns: dict, *, ops: tuple, tiles_y: int, tiles_x: int,
-                  background: tuple, height: int, width: int,
+def compose_tiles(blob: torch.Tensor, images: tuple, slabs: tuple,
+                  dyns: dict, *, starts: slice, ops: tuple, tiles_y: int,
+                  tiles_x: int, background: tuple, height: int, width: int,
                   n_rows: int | None = None, row0=None,
                   rows: PlanRows | None = None) -> torch.Tensor:
-    """Blend the plan's layers (see the module docstring) on `starts`'
+    """Blend the plan's layers (see the module docstring) on `blob`'s
     device → the (height, width, 4) u8 frame; with `n_rows` / `row0`, a
     slice of tile rows from global row `row0`, that slice's rows of it. On
     the CPU this is `compose_tiles_plain`; on a CUDA device it launches the
     kernel (and counts the launch in `compose_tiles.launches`) or raises.
     `rows`: the plan's `PlanRows`, which spare a frame the "img" and "slab"
     rows."""
-    if starts.device.type == "cpu":
-        return compose_tiles_plain(starts, images, slabs, dyns, ops=ops,
-                                   tiles_y=tiles_y, tiles_x=tiles_x,
+    if blob.device.type == "cpu":
+        return compose_tiles_plain(blob, images, slabs, dyns, starts=starts,
+                                   ops=ops, tiles_y=tiles_y, tiles_x=tiles_x,
                                    background=background, height=height,
                                    width=width, n_rows=n_rows, row0=row0)
-    if starts.device.type != "cuda":
-        raise ValueError(f"{_WHO}: unsupported device {starts.device}")
+    if blob.device.type != "cuda":
+        raise ValueError(f"{_WHO}: unsupported device {blob.device}")
     r0, r1, out_h = slice_rows(n_rows, row0, tiles_y, height)
     if not out_h:   # pad rows alone: nothing to blend
-        return torch.empty((0, width, 4), device=starts.device,
+        return torch.empty((0, width, 4), device=blob.device,
                            dtype=torch.uint8)
-    return _launch(starts, images, slabs, dyns, ops, tiles_y, tiles_x,
+    return _launch(blob, starts, images, slabs, dyns, ops, tiles_y, tiles_x,
                    background, height, width, rows, r0, r1, out_h)
 
 

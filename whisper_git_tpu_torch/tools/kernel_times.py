@@ -168,8 +168,8 @@ def compose(smoke, torch, renderer, scene) -> list:
     starts, dyns, kops = C.frame_tails(
         args[0], font, atlas, st["height"], st["width"], st["tiles_y"],
         st["tiles_x"], st["meta"])
-    pos = (starts, tuple(args[1]), tuple(args[2]), dyns)
-    kw = dict(tiles_y=st["tiles_y"], tiles_x=st["tiles_x"],
+    pos = (args[0], tuple(args[1]), tuple(args[2]), dyns)
+    kw = dict(starts=starts, tiles_y=st["tiles_y"], tiles_x=st["tiles_x"],
               background=st["background"], height=st["height"],
               width=st["width"], rows=st.get("rows"))
     rows = []

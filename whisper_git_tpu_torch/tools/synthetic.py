@@ -20,7 +20,9 @@ Kinds:
 
 `synthetic_compose` makes seeded op lists for the compose kernel instead:
 random premultiplied layers, slabs, an inline shape tail and a pre-rendered
-tail, in the layouts `render/compose_kernel.py` documents.
+tail, in the layouts `render/compose_kernel.py` documents; the slab starts
+and the inline tails lie in an i16 frame blob, packed as the compose path
+packs them.
 """
 
 from __future__ import annotations
@@ -217,14 +219,18 @@ def _i16_layer(rng, h: int, w: int, cover: float = 0.6) -> np.ndarray:
 def synthetic_compose(case: str, seed: int, width: int = 384,
                       height: int = 300) -> dict:
     """Seeded arguments of `compose_kernel.compose_tiles`, as numpy arrays:
-    {"starts", "images", "slabs", "dyns", "ops", "tiles_y", "tiles_x",
-    "background", "height", "width"}. Between them the cases hold every op
-    kind: "layers" a full-frame layer, a rect that starts at tile (1, 1)
-    and ends on the frame's ragged last tile row, and three slabs (a start
-    on a tile boundary, one off it, one at slab_h − height) under y clips
-    that cut tiles; "tails" an inline shape tail and a pre-rendered tail
-    at tile columns ≥ 1 between layers; "empty" no op at all; "windowless"
-    layers and a tail with no slab."""
+    {"blob", "starts", "images", "slabs", "dyns", "ops", "tiles_y",
+    "tiles_x", "background", "height", "width"}. The i16 blob holds the
+    slab starts (`starts` is their slice) and then each inline tail's
+    tables, quantized in frame coordinates at the scales of
+    `rasterizer._PART_SPECS`, and its bins, as `compose._pack_frame_blob`
+    lays out a layer whose tail is shapes alone. Between them the cases
+    hold every op kind: "layers" a full-frame layer, a rect that starts at
+    tile (1, 1) and ends on the frame's ragged last tile row, and three
+    slabs (a start on a tile boundary, one off it, one at slab_h − height)
+    under y clips that cut tiles; "tails" an inline shape tail and a
+    pre-rendered tail at tile columns ≥ 1 between layers; "empty" no op at
+    all; "windowless" layers and a tail with no slab."""
     from ..render import rasterizer as R
 
     TILE_H, TILE_W = R.TILE_H, R.TILE_W
@@ -235,7 +241,7 @@ def synthetic_compose(case: str, seed: int, width: int = 384,
     if tiles_y < 3 or tiles_x < 3:
         raise ValueError("synthetic_compose needs at least 3x3 tiles")
     slab_h = -(-(height + 2 * 192) // TILE_H) * TILE_H
-    images, slabs, starts, dyns, ops = [], [], [], {}, []
+    images, slabs, starts, dyns, ops, tails = [], [], [], {}, [], []
 
     def img(ty0: int, tx0: int, ty1: int, tx1: int, cover: float = 0.6):
         h = min(ty1 * TILE_H, height) - ty0 * TILE_H
@@ -249,13 +255,19 @@ def synthetic_compose(case: str, seed: int, width: int = 384,
         starts.append(start)
 
     def dyni(li: int, c0: int, ts: int, n: int):
-        sub_w = min(ts * TILE_W, width - c0 * TILE_W)
+        x0 = c0 * TILE_W
+        sub_w = min(ts * TILE_W, width - x0)
         shapes, clips = _shapes(rng, n, sub_w, height)
         boxes = R._intersect_boxes(R._shape_boxes(shapes, n), clips)
         bins, _ = R._bin_indexed(boxes, np.arange(n, dtype=np.int64),
                                  tiles_y, ts, 32)
-        dyns[(li, 0)] = (shapes, clips, bins,
-                         (bins >= 0).sum(axis=1).astype(np.int32))
+        # In frame coordinates: a capsule's two end points, a rect's origin
+        # and the clip's x bounds moved by the sub-grid's x.
+        shapes[:, 1] += x0
+        shapes[:, 3] += np.where(shapes[:, 0] == 1.0, x0, 0.0)
+        clips[:, 0::2] += x0
+        tails.append((li, _quantized(shapes, R._SHAPE_COL_SCALE),
+                      _quantized(clips, 4.0), bins.astype(np.int16)))
         ops.append(("dyni", li, 0, c0, ts))
 
     def dyn(li: int, ci: int, c0: int, ts: int):
@@ -281,25 +293,41 @@ def synthetic_compose(case: str, seed: int, width: int = 384,
         img(1, 0, tiles_y, 2, 0.7)
         dyni(0, 1, 1, 6)
         dyn(1, 2, 0, tiles_x)
-    return {"starts": np.asarray(starts, np.int32), "images": images,
-            "slabs": slabs, "dyns": dyns, "ops": tuple(ops),
+    parts = [np.asarray(starts, np.int16)]
+    at = len(starts)
+    for li, q_shapes, q_clips, bins in tails:
+        cap = q_shapes.shape[0]
+        dyns[(li, 0)] = (at, at + cap * 16, at + cap * 20, cap,
+                         bins.shape[1])
+        parts += [q_shapes.ravel(), q_clips.ravel(), bins.ravel()]
+        at += cap * 20 + bins.size
+    return {"blob": np.concatenate(parts), "starts": slice(0, len(starts)),
+            "images": images, "slabs": slabs, "dyns": dyns, "ops": tuple(ops),
             "tiles_y": tiles_y, "tiles_x": tiles_x,
             "background": BACKGROUND[:3], "height": height, "width": width}
 
 
+def _quantized(values: np.ndarray, scale) -> np.ndarray:
+    """`values` in the blob's fixed point: times `scale` (a column's, or
+    one for all), rounded and held to i16."""
+    return np.clip(np.rint(values * np.asarray(scale, np.float32)),
+                   -32767.0, 32767.0).astype(np.int16)
+
+
 def compose_args_to(args: dict, device) -> dict:
     """`synthetic_compose`'s arrays as tensors on `device`: the keyword
-    arguments of `compose_tiles` but for `starts`, `images`, `slabs` and
-    `dyns`, which it takes by position."""
+    arguments of `compose_tiles` but for `blob`, `images`, `slabs` and
+    `dyns`, which it takes by position (an inline tail's offsets stay
+    ints)."""
     import torch
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     out = dict(args)
-    out["starts"] = t(args["starts"])
+    out["blob"] = t(args["blob"])
     out["images"] = tuple(t(a) for a in args["images"])
     out["slabs"] = tuple(t(a) for a in args["slabs"])
-    out["dyns"] = {k: tuple(t(a) for a in v) if isinstance(v, tuple)
-                   else t(v) for k, v in args["dyns"].items()}
+    out["dyns"] = {k: v if isinstance(v, tuple) else t(v)
+                   for k, v in args["dyns"].items()}
     return out

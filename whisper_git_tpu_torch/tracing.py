@@ -57,6 +57,10 @@ COUNTERS: dict = dict.fromkeys((
     "compose.attempted", "compose.declined_subpixel", "compose.plan_hits",
     "compose.plan_builds", "compose.plan_slab_misses",
     "compose.layer_builds",
+    # The volatile tails of composed frames (`compose.frame_tails`): shape
+    # tails K3 decodes from the frame blob itself, and glyph or image
+    # tails K2 pre-renders for it.
+    "compose.tails_inline", "compose.tails_prerendered",
     # Host-to-device copies of the render path (`render/transfer.py`), and
     # its own device-to-host reads.
     "upload.calls", "upload.bytes", "readback.calls", "readback.bytes",
