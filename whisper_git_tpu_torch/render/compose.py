@@ -478,12 +478,14 @@ def _compose_frame(blob, images, slabs, font_tex, image_atlas,
                              starts=starts, ops=kops, tiles_y=tiles_y,
                              tiles_x=tiles_x, background=background,
                              height=height, width=width, rows=rows)
+    COUNTERS["mesh.frames"] += 1
     _, ty_pad = F._sharded_tile_rows(tiles_y, tiles_x, mesh)
     local = ty_pad // mesh.size
     parts = []
     for s, dev in enumerate(mesh.flat):
         with span("shard", card=dev.index):
-            blob_s, dyns_s = F.replicate((blob, dyns), dev)
+            with span("mesh.replicate"):
+                blob_s, dyns_s = F.replicate((blob, dyns), dev)
             parts.append(compose_tiles(
                 blob_s, images[s], slabs[s], dyns_s, starts=starts,
                 ops=kops, tiles_y=tiles_y, tiles_x=tiles_x,

@@ -728,7 +728,11 @@ def replicate(tree, device):
 
 def gather(parts, device) -> torch.Tensor:
     """The shards' outputs, moved to `device` and joined along their first
-    axis (rows of a frame or a layer, tiles of a slice)."""
+    axis (rows of a frame or a layer, tiles of a slice). Each output that
+    holds a row was one kernel launch of its shard (a slice of pad rows
+    alone launches nothing), counted in `mesh.shard_launches`."""
+    tracing.COUNTERS["mesh.shard_launches"] += sum(
+        1 for p in parts if p.shape[0])
     with span("gather"):
         return torch.cat([move(p, device, "gather") for p in parts])
 
@@ -758,8 +762,9 @@ def _render_tiles_blocks_sharded(layers_blocks, font_tex, image_atlas,
     parts = []
     for s, dev in enumerate(mesh.flat):
         with span("shard", card=dev.index):
-            lb, ftex, iatlas = replicate((layers_blocks, font_tex,
-                                          image_atlas), dev)
+            with span("mesh.replicate"):
+                lb, ftex, iatlas = replicate((layers_blocks, font_tex,
+                                              image_atlas), dev)
             parts.append(render_tiles_blocks(
                 lb, ftex, iatlas, background, tiles_y, tiles_x, height,
                 width, n_tiles=local * tiles_x, tile0=s * local * tiles_x,
@@ -801,6 +806,7 @@ def render_frame_device(scene: Scene, font_tex: torch.Tensor,
     mesh = get_render_mesh()
     with span("frame.launch"):
         if mesh is not None:
+            tracing.COUNTERS["mesh.frames"] += 1
             return move(_render_tiles_blocks_sharded(*args, mesh), device,
                         "gather")
         return render_tiles_blocks(*args)

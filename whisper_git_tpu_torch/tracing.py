@@ -64,6 +64,10 @@ COUNTERS: dict = dict.fromkeys((
     # Host-to-device copies of the render path (`render/transfer.py`), and
     # its own device-to-host reads.
     "upload.calls", "upload.bytes", "readback.calls", "readback.bytes",
+    # Frames whose device work a render mesh split (the compose path's
+    # blend, the frame cache's launch), and the kernel launches its shards
+    # made (a shard whose slice holds a row of the output launches one).
+    "mesh.frames", "mesh.shard_launches",
     # Background workers started.
     "refresh.state_starts", "refresh.status_starts", "avatar.fetch_starts",
     "diff_stats.starts",
