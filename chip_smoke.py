@@ -842,8 +842,9 @@ def run_phases(torch, card: str, kind: str, work: str,
         "torch.equal to the full output cut to it")
     scene = synthetic_scene("windows2", 0, renderer.regular, bold_v)
     blocks = k2_inputs(scene, torch.from_numpy(scene.image_atlas).to(dev))[0]
-    if [lo is None for _, _, lo, _ in blocks[0][0]] != \
-            [False, True, False, True, False, True]:
+    if [type(b).__name__ for b in blocks[0][0]] != \
+            ["tuple", "WindowBlock", "tuple", "WindowBlock", "tuple",
+             "TailBlock"]:
         fail("windows2 did not cut its chrome shapes into three segments "
              "around two windows, with a volatile tail")
 
@@ -1300,7 +1301,8 @@ def run_phases(torch, card: str, kind: str, work: str,
     out3 = CK.compose_tiles(*pos3, **kw3, rows=rows3)
 
     def blocks_runs(layers_blocks):
-        return [(ci, *block) for cls_lists in layers_blocks
+        return [(ci, *block) for cls_lists in F.resolve_blocks(
+                    layers_blocks, args2[4], args2[5])
                 for ci in B.Z_ORDER for block in cls_lists[ci]]
 
     bound1 = kernel_bound(torch, K, [
@@ -2323,7 +2325,8 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
 
     def runs2(layers_blocks, rows):
         return [(ci, tables, bins[rows], None if lo is None else lo[rows],
-                 hi[rows]) for cls_lists in layers_blocks
+                 hi[rows]) for cls_lists in F.resolve_blocks(
+                     layers_blocks, args2[4], args2[5])
                 for ci in B.Z_ORDER
                 for tables, bins, lo, hi in cls_lists[ci]]
 

@@ -5,8 +5,9 @@ blocks kernel in interpret mode, on the same blocks.
 
 The blocks are carried across from the reference: its `pack_frame` output
 (frame blob, chrome arguments, window arguments) goes through the port's
-`build_blocks` as torch tensors, and the very same blocks, as jax arrays,
-go through the reference's renderers."""
+`build_blocks` as torch tensors, its window and tail blocks are resolved to
+plain ones (`resolve_blocks`), and the very same blocks, as jax arrays, go
+through the reference's renderers."""
 
 from __future__ import annotations
 
@@ -46,13 +47,14 @@ def _to_jax(x):
 
 def reference_blocks(scene):
     """The reference's `pack_frame` output for `scene`, carried across
-    into the port's block lists. → (torch blocks, tiles_y, tiles_x)."""
+    into the port's block lists, every block a plain one. → (torch blocks,
+    tiles_y, tiles_x)."""
     F.clear_caches()
     frame_blob, chrome_args, win_args, meta = F.pack_frame(scene)
     blocks = PF.build_blocks(torch.from_numpy(frame_blob),
                              _to_torch(chrome_args), _to_torch(win_args),
                              meta)
-    return blocks, meta[0], meta[1]
+    return PF.resolve_blocks(blocks, meta[0], meta[1]), meta[0], meta[1]
 
 
 @functools.partial(jax.jit, static_argnames=("background", "tiles_y",
@@ -232,11 +234,12 @@ def test_descriptors_follow_z_order_and_check_their_tensors(port_renderer):
     r = port_renderer
     scene, blocks, ty, tx = _small_blocks(r)
     dev = torch.device("cpu")
-    desc, keep = B._descriptors(blocks, ty * tx, dev)
+    desc, keep = B._descriptors(blocks, ty, tx, dev)
     want_cls = [ci for cls_lists in blocks for ci in B.Z_ORDER
                 for _ in cls_lists[ci]]
     assert desc["cls"].tolist() == want_cls and len(want_cls) > 3
-    assert desc.dtype.itemsize == 56
+    assert desc.dtype.itemsize == 64
+    assert not desc["kind"].any() and not desc["aux"].any()   # plain
     flat = [b for cls_lists in blocks for ci in B.Z_ORDER
             for b in cls_lists[ci]]
     for row, (tables, bins, lo, hi) in zip(desc, flat):
@@ -248,13 +251,13 @@ def test_descriptors_follow_z_order_and_check_their_tensors(port_renderer):
     tables, bins, lo, hi = blocks[0][0][0]
     bad = (((tables, bins.long(), lo, hi),), (), ())
     with pytest.raises(ValueError, match="bins"):
-        B._descriptors((bad,), ty * tx, dev)
+        B._descriptors((bad,), ty, tx, dev)
     bad = (((tables, bins, lo, hi[:-1]),), (), ())
     with pytest.raises(ValueError, match="rows"):
-        B._descriptors((bad,), ty * tx, dev)
+        B._descriptors((bad,), ty, tx, dev)
     bad = (((tables[:1], bins, lo, hi),), (), ())
     with pytest.raises(ValueError, match="tables"):
-        B._descriptors((bad,), ty * tx, dev)
+        B._descriptors((bad,), ty, tx, dev)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -342,11 +345,16 @@ def test_layer_modes_refuse_what_has_no_meaning(port_renderer):
 def test_params_struct_layout_and_the_inline_cap():
     """The parameter block as nvcc lays it out for a 64-bit target, with the
     block descriptors that ride in the launch by value at its end; the
-    whole stays under the 4 KB a launch may carry."""
+    whole stays within the 32764 B a launch carries (CUDA 12.1 and later,
+    on Volta and later cards)."""
     import ctypes
 
     P = B._BlocksParams
-    assert B._BLOCK_DESC.itemsize == 56
+    D = B._BLOCK_DESC
+    assert D.itemsize == 64 == B._BLOCK_PACK.size
+    assert [D.fields[f][1] for f in D.names] == [0, 8, 16, 24, 32, 40, 48,
+                                                 52, 56, 60]
+    assert D.names[-2:] == ("kind", "aux")
     assert (P.blocks.offset, P.n_blocks.offset, P.out_mode.offset) == (0, 8,
                                                                        12)
     assert (P.font_tex.offset, P.image_atlas.offset) == (16, 32)
@@ -354,7 +362,7 @@ def test_params_struct_layout_and_the_inline_cap():
     assert (P.rect_tx.offset, P.height.offset, P.out.offset) == (76, 80, 88)
     assert P.inline_blocks.offset == 96
     assert B.MAX_INLINE_BLOCKS == 64
-    assert ctypes.sizeof(P) == 96 + B.MAX_INLINE_BLOCKS * 56 <= 4096
+    assert ctypes.sizeof(P) == 96 + B.MAX_INLINE_BLOCKS * 64 <= 32764
 
 
 @pytest.mark.parametrize("n", (0, 3, 64, 65))

@@ -259,8 +259,8 @@ def test_frame_cache_over_two_devices_copies_the_atlases_once(
               for t in _tensors((e["parts"], e["bins"], e["segs"]))]
     assert chrome and all(sum(1 for c in copied if c is t) <= 1
                           for t in chrome)
-    # After the first frame, only each frame's own tables: the windows'
-    # shifted tables and gathered bins, the volatile tails.
+    # After the first frame, only each frame's own tensors: its frame
+    # blob, which holds the windows' uniforms and the volatile tails.
     assert max(fresh[1:]) < fresh[0]
 
 

@@ -169,22 +169,31 @@ def test_plain_on_the_blob_is_the_old_decode_and_blend(case, seed):
 
 
 def test_kernel_reciprocals_are_the_blob_scales():
-    """The reciprocal scales the kernel multiplies a tail's i16 values by
+    """The reciprocal scales the kernels multiply a tail's i16 values by
     are np.float32(1 / scale) of the blob's shape and clip columns, powers
-    of two, and the kernel's `__constant__` table holds the same."""
+    of two, and the `__constant__` table the compose and blocks kernels
+    share holds the same, beside the quad's and the glyph colour's."""
     shape_scale = R._part_scale("shapes", 16, None)
     clip_scale = R._part_scale("shape_clips", 4, 4.0)
     assert CK.SHAPE_INV.dtype == np.float32
     assert np.array_equal(CK.SHAPE_INV, np.float32(1.0) / shape_scale)
     assert (clip_scale == np.float32(1.0) / CK.CLIP_INV).all()
     assert all(np.log2(v) == int(np.log2(v)) for v in shape_scale)
-    with open(os.path.join(K.CSRC_DIR, "compose_tiles.cu")) as f:
+    with open(os.path.join(K.CSRC_DIR, "raster_steps.cuh")) as f:
         src = f.read()
     table = src[src.index("SHAPE_INV[16] = {"):].split("}")[0]
     vals = [np.float32(1.0) / np.float32(x.split("/")[1].strip()[:-1])
             for x in table.split("{")[1].split(",")]
     assert np.array_equal(np.float32(vals), CK.SHAPE_INV)
     assert "CLIP_INV = 1.0f / 4.0f;" in src
+    quad = R._part_scale("glyphs", 8, 8.0)
+    assert (quad == np.float32([8.0] * 4 + [1.0] * 4)).all()
+    assert "QUAD_XY_INV = 1.0f / 8.0f;" in src
+    assert R._part_scale("glyph_colors", 4, 8192.0)[0] == 8192.0
+    assert "COLOUR_INV = 1.0f / 8192.0f;" in src
+    for name in ("compose_tiles.cu", "raster_blocks.cu"):
+        with open(os.path.join(K.CSRC_DIR, name)) as f:
+            assert '#include "raster_steps.cuh"' in f.read()
 
 
 def test_cases_hold_every_op_kind():

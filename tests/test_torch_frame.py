@@ -18,6 +18,7 @@ import whisper_git_tpu.render.rasterizer as R
 from test_torch_slice import fresh_compile_caches
 from whisper_git_tpu.render.renderer import get_renderer
 from whisper_git_tpu.ui.theme import DARK
+from whisper_git_tpu_torch.render import blocks_kernel as B
 from whisper_git_tpu_torch.render import frame as PF
 from whisper_git_tpu_torch.render import rasterizer as P
 from whisper_git_tpu_torch.render.blocks_kernel import render_tiles_blocks
@@ -208,6 +209,200 @@ def test_pair_bin_gather_bit_equal(dy):
                                    torch.from_numpy(counts), av[ci], ok[ci],
                                    kP)
         _same((bins, cnt), got, f"gather dy={dy} class {ci}")
+
+
+# ---- (c) the window and tail blocks K2 resolves from the frame blob ----------
+
+def _torch_route_blocks(frame_blob, chrome_args, win_args, meta):
+    """A frame's plain blocks made in torch over the whole frame at once,
+    in the order K2 draws them: the uniforms from the frame blob, every
+    window's tables moved (`_shift_parts`) and its pair bins gathered by
+    the scroll offset (`_pair_rows`, `_gather_pair_bins`), each layer's
+    volatile tail de-quantized from the blob (`_dequant_parts`) with its
+    bins widened and counted."""
+    tiles_y, tiles_x, n_win, win_meta, layers_meta = meta
+    T = tiles_y * tiles_x
+    if n_win:
+        head = frame_blob[:n_win * 16].reshape(2, n_win, 8)
+        uni = head[0].float() * PF._uniform_scale(frame_blob.device)
+        uni2 = head[1].int()
+    fo = n_win * 16
+    win_blocks = []
+    for wi in range(n_win):
+        shifted = PF._shift_parts(win_args[wi][0], uni[wi])
+        av, ok = PF._pair_rows(uni2[wi], uni[wi, 1], tiles_y)
+        cls_blocks = []
+        for ci in range(3):
+            cm = win_meta[wi][2][ci]
+            if cm is None:
+                cls_blocks.append(None)
+                continue
+            P_, counts = win_args[wi][1][ci]
+            cls_blocks.append(PF._gather_pair_bins(P_, counts, av[ci],
+                                                   ok[ci], cm[0]))
+        win_blocks.append((shifted, tuple(cls_blocks)))
+    layers_blocks = []
+    for li, (caps, ks, lws, dyn_meta, _) in enumerate(layers_meta):
+        parts, bins3, segs3 = chrome_args[li]
+        dyn_caps, dyn_ks = dyn_meta[0], dyn_meta[1]
+        dyn_tables = None
+        if sum(dyn_caps):
+            nwords = sum(dyn_caps[PF._PART_CLS[name]] * cols
+                         for name, cols, _ in P._PART_SPECS)
+            dyn_tables = PF._dequant_parts(frame_blob[fo:fo + nwords],
+                                           dyn_caps)
+            fo += nwords
+        dyn_bins = []
+        for k in dyn_ks:
+            if k == 0:
+                dyn_bins.append(None)
+                continue
+            b = frame_blob[fo:fo + T * k].reshape(T, k).int()
+            fo += T * k
+            dyn_bins.append((b, (b >= 0).sum(dim=1, dtype=torch.int32)))
+        cls_lists = []
+        for ci in range(3):
+            blocks = []
+            idx = PF._CLS_TABLES[ci]
+            for si in range(len(lws) + 1):
+                if ks[ci]:
+                    blocks.append((tuple(parts[j] for j in idx), bins3[ci],
+                                   segs3[ci][si], segs3[ci][si + 1]))
+                if si < len(lws):
+                    wsh, wcls = win_blocks[lws[si]]
+                    if wcls[ci] is not None:
+                        blocks.append((tuple(wsh[j] for j in idx),
+                                       wcls[ci][0], None, wcls[ci][1]))
+            if dyn_bins[ci] is not None and dyn_tables is not None:
+                blocks.append((tuple(dyn_tables[j] for j in idx),
+                               dyn_bins[ci][0], None, dyn_bins[ci][1]))
+            cls_lists.append(tuple(blocks))
+        layers_blocks.append(tuple(cls_lists))
+    return tuple(layers_blocks)
+
+
+def _assert_blocks_equal(got, want, label):
+    """Two nests of plain blocks equal: the same structure, every tensor
+    of the same type, shape and bytes."""
+    if isinstance(want, torch.Tensor):
+        assert isinstance(got, torch.Tensor), label
+        assert got.dtype == want.dtype and got.shape == want.shape, label
+        assert torch.equal(got, want), label
+    elif want is None:
+        assert got is None, label
+    else:
+        assert type(got) is tuple and len(got) == len(want), label
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_blocks_equal(g, w, f"{label}[{i}]")
+
+
+# Offsets of a drag: whole, fractional, past a tile row; "end" is 0.375 px
+# short of the last offset, where the history ends above the frame's
+# bottom, so that tile rows there fall outside the window's pair rows.
+BLOB_OFFSETS = (0.0, 63.9, 111.5, "end")
+
+
+@pytest.mark.parametrize("off", BLOB_OFFSETS)
+def test_window_and_tail_blocks_equal_the_torch_route(history, off,
+                                                      monkeypatch):
+    """The history view's frame-cache blocks, window and tail blocks that
+    K2 resolves from the frame blob: resolved to plain blocks, they are
+    the torch route's, tensor for tensor; drawn by the plain version they
+    give its frame bit for bit, and the JAX package's frame cache's within
+    the glyph resampling bound."""
+    _, tab, ref, port, _ = history
+    _fresh()
+    at_end = off == "end"
+    if at_end:
+        _compile_both(history, 0.0)
+        off = max(0.0, tab.graph_layout.total_height - 200.0) - 0.375
+    ref_scene, scene = _compile_both(history, off)
+    blob, chrome, wins, meta = PF.pack_frame(scene)
+    ty, tx, n_win = meta[:3]
+    blob_t = torch.from_numpy(blob)
+    blocks = PF.build_blocks(blob_t, chrome, wins, meta)
+    flat = [b for cls_lists in blocks for c in cls_lists for b in c]
+    n_windows = sum(isinstance(b, PF.WindowBlock) for b in flat)
+    assert n_windows and any(isinstance(b, PF.TailBlock) for b in flat)
+    want = _torch_route_blocks(blob_t, chrome, wins, meta)
+    _assert_blocks_equal(PF.resolve_blocks(blocks, ty, tx), want, f"@{off}")
+    # Tile rows that read no pair row of a window class, at the end.
+    uni = blob_t[:n_win * 16].reshape(2, n_win, 8)
+    outside = 0
+    for wi in range(n_win):
+        _, ok = PF._pair_rows(uni[1, wi].int(),
+                              uni[0, wi, 1].float() / 8.0, ty)
+        outside += sum(int((ok[ci] == 0).sum())
+                       for ci in range(3) if meta[3][wi][2][ci] is not None)
+    assert outside > 0 or not at_end
+    args = (port.font_tex_device(), port.image_atlas_device(),
+            tuple(float(c) for c in scene.background[:3]), ty, tx,
+            scene.height, scene.width)
+    got = B.render_tiles_blocks_plain(blocks, *args)
+    assert torch.equal(got, B.render_tiles_blocks_plain(want, *args))
+    monkeypatch.setenv("WGIT_FRAME_COMPOSE", "0")
+    ref_img = np.asarray(F.render_frame_device(
+        ref_scene, ref.font_tex_device(), ref.image_atlas_device()))
+    d = np.abs(got.numpy().astype(np.int16) - ref_img.astype(np.int16))
+    print(f"blob blocks vs JAX frame cache at {off}: max {d.max()} u8, "
+          f">2 on {(d > 2).mean():.6f}")
+    assert d.max() <= 8 and (d > 2).mean() < 0.01
+
+
+def test_a_drag_frames_descriptors_ride_inline(history):
+    """A drag frame of the history view at 1280x800 (a fractional offset,
+    which compose declines): its descriptors ride in the launch, its
+    windows point at their uniform rows of the blob and its tails at their
+    tables and bins there."""
+    import ctypes
+
+    from whisper_git_tpu_torch.render import raster_kernel as K
+
+    _fresh()
+    scene = _compile_both(history, 37.625)[1]
+    blob, chrome, wins, meta = PF.pack_frame(scene)
+    ty, tx, n_win = meta[:3]
+    blob_t = torch.from_numpy(blob)
+    blocks = PF.build_blocks(blob_t, chrome, wins, meta)
+    desc, keep = B._descriptors(blocks, ty, tx, torch.device("cpu"))
+    assert 0 < len(desc) <= B.MAX_INLINE_BLOCKS
+    p = B._BlocksParams()
+    assert K.place_descriptors(p, "blocks", "inline_blocks", desc,
+                               B.MAX_INLINE_BLOCKS, "cpu") is None
+    assert bytes(p.inline_blocks)[:desc.nbytes] == desc.tobytes()
+    base = blob_t.data_ptr()
+    flat = [(ci, b) for cls_lists in blocks for ci in B.Z_ORDER
+            for b in cls_lists[ci]]
+    assert len(flat) == len(desc)
+    for row, (ci, b) in zip(desc, flat):
+        if isinstance(b, PF.WindowBlock):
+            assert row["kind"] == 1 and row["aux"] == 8 * n_win
+            assert row["lo"] == base + 16 * b.window
+            assert row["bins"] == b.P.data_ptr() and row["k"] == b.P.shape[2]
+            assert row["hi"] == b.counts.data_ptr()
+        elif isinstance(b, PF.TailBlock):
+            offs = B.tail_tables(b.at, b.caps, ci)
+            assert row["kind"] == 2 and row["k"] == b.k
+            assert [row[f] for f in ("t0", "t1", "t2")][:len(offs)] == \
+                [base + 2 * o for o in offs]
+            assert row["bins"] == base + 2 * b.bins and row["hi"] == 0
+        else:
+            assert row["kind"] == 0
+    kinds = desc["kind"].tolist()
+    assert kinds.count(1) >= 2 and kinds.count(2) >= 1
+    assert ctypes.sizeof(p) <= 32764
+
+
+def test_tail_tables_follow_the_part_specs():
+    """`tail_tables` finds each class's tables where `_quant_parts_blob`
+    puts them: the seven parts of `_PART_SPECS` one after another."""
+    caps = (8, 16, 4)
+    at, fo, want = 40, 40, {}
+    for name, cols, _ in P._PART_SPECS:
+        want.setdefault(PF._PART_CLS[name], []).append(fo)
+        fo += caps[PF._PART_CLS[name]] * cols
+    for ci in range(3):
+        assert list(B.tail_tables(at, caps, ci)) == want[ci]
 
 
 # ---- (e) the slice ------------------------------------------------------------

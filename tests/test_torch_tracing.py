@@ -307,6 +307,44 @@ def test_a_frame_cache_frame_uploads_its_blob_only_when_warm(port,
     assert d["upload.calls"] == 1 and d["upload.bytes"] == blob.nbytes
 
 
+def test_frame_cache_frames_count_the_blocks_k2_resolves(port, monkeypatch):
+    """Each frame-cache frame counts its window blocks in
+    `blocks.windows_inline` and its volatile tails' blocks in
+    `blocks.tails_inline`; composed frames, a plan's build among them,
+    count neither. The tails' and pair rows' high-water marks are the
+    test's own, so that later scenes get no tail of this one's size."""
+    monkeypatch.setattr(PF, "_DYN_HW", {})
+    monkeypatch.setattr(PF, "_WR_HW", {})
+    scene = synthetic_scene("volatile", 0, port.regular,
+                            port.regular.texture.shape[0])
+    assert scene.windows[0].dy != int(scene.windows[0].dy)
+    atlas = torch.from_numpy(scene.image_atlas)
+    blob, chrome, wins, meta = PF.pack_frame(scene)
+    flat = [b for cls_lists in PF.build_blocks(torch.from_numpy(blob), chrome,
+                                               wins, meta)
+            for blocks in cls_lists for b in blocks]
+    want = (sum(isinstance(b, PF.WindowBlock) for b in flat),
+            sum(isinstance(b, PF.TailBlock) for b in flat))
+    assert min(want) > 0
+    n = 3
+    c0 = tracing.counters()
+    for _ in range(n):
+        P.render_scene_device(scene, port.font_tex_device(), atlas)
+    d = _delta(c0)
+    assert d["frames.frame_cache"] == n
+    assert d["blocks.windows_inline"] == want[0] * n
+    assert d["blocks.tails_inline"] == want[1] * n
+    whole = dataclasses.replace(scene, windows=[
+        dataclasses.replace(w, dy=float(int(w.dy))) for w in scene.windows])
+    PC.clear_caches()
+    c1 = tracing.counters()
+    for _ in range(n):
+        P.render_scene_device(whole, port.font_tex_device(), atlas)
+    d = _delta(c1)
+    assert d["frames.composed"] == n and d["compose.plan_builds"] == 1
+    assert not any(k.startswith("blocks.") for k in d)
+
+
 def test_frame_log_gives_the_counters_as_a_frame_began():
     tracing.next_frame()
     t = time.perf_counter_ns()

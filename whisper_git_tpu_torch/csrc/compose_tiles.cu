@@ -87,15 +87,6 @@ constexpr int OP_SLAB = 1;
 constexpr int OP_DYNI = 2;
 constexpr int OP_DYN = 3;
 constexpr float I16_INV = (float)(1.0 / 32767.0);
-// The reciprocals of the fixed-point scales of a shape command's 16 columns
-// (geometry at 1/8 px, colours at 1/8192: rasterizer._SHAPE_COL_SCALE) and
-// of its clip rect (1/4 px), as np.float32(1 / scale) gives them.
-__constant__ float SHAPE_INV[16] = {
-    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,
-    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8192.0f,
-    1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f,
-    1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8.0f};
-constexpr float CLIP_INV = 1.0f / 4.0f;
 constexpr int MAX_INLINE_OPS = 48;     // descriptors that ride in the launch
 constexpr int COMPOSE_THREADS = 128;   // 64 pixel pairs across, 2 rows
 constexpr int PAIRS = TILE_W / 2;

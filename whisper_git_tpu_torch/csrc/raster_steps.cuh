@@ -381,6 +381,23 @@ __device__ __forceinline__ void store_i16(const PX& f, int x, int oy,
   }
 }
 
+// ---- The frame blob's fixed point -----------------------------------------
+
+// The reciprocals of the fixed-point scales of a shape command's 16 columns
+// (geometry at 1/8 px, colours at 1/8192: rasterizer._SHAPE_COL_SCALE), of a
+// glyph or image quad's 8 (x, y, w, h at 1/8 px, the atlas cell's u, v, uw,
+// uh whole), of a glyph's colour (1/8192) and of a clip rect (1/4 px), as
+// np.float32(1 / scale) gives them. Every scale is a power of two, so a
+// value times its reciprocal is exact.
+__constant__ float SHAPE_INV[16] = {
+    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,
+    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8.0f,    1.0f / 8192.0f,
+    1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f,
+    1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8192.0f, 1.0f / 8.0f};
+constexpr float QUAD_XY_INV = 1.0f / 8.0f;   // columns 0-3; 4-7 are whole
+constexpr float COLOUR_INV = 1.0f / 8192.0f;
+constexpr float CLIP_INV = 1.0f / 4.0f;
+
 // ---- Staging: a tile's commands in shared memory, culled to a unit --------
 
 constexpr int STAGE_PASS = 128;   // bins slots examined at a time
@@ -406,16 +423,37 @@ struct UnitBox {
   float x_lo, x_hi, y_lo, y_hi;
 };
 
+// The place in the shared buffer of this thread's command where it is kept,
+// after the `n` commands staged before, in slot order: a ballot a warp, a
+// prefix over the counts of the first STAGE_PASS / 32 warps (`s_count`, one
+// of two arrays taken in turns, so that no pass overwrites what the last
+// one's prefix still reads). Every thread of the CTA calls it; `total` is
+// the pass's count of kept commands.
+__device__ __forceinline__ int stage_place(int n, int* s_count, bool keep,
+                                           int& total) {
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  if (tid < STAGE_PASS && lane == 0) s_count[warp] = __popc(ballot);
+  __syncthreads();
+  int base = n;
+  total = 0;
+#pragma unroll
+  for (int w = 0; w < STAGE_PASS / 32; ++w) {
+    const int cw = s_count[w];
+    if (w < warp) base += cw;
+    total += cw;
+  }
+  return base + __popc(ballot & ((1u << lane) - 1u));
+}
+
 // Stage one pass. This thread's slot holds command `idx` (-1: none) of
 // class `cls` (0 shapes, 1 glyphs, 2 images), whose tables are
 // t0: shapes (N,16) | glyphs (N,8)       | images (N,8)
 // t1: shape_clips   | glyph_colors (N,4) | image_clips
 // t2: unused        | glyph_clips (N,4)  | unused;
-// it is kept if its extent meets the unit. The survivors are written after
-// the `n` commands staged before, in slot order: a ballot a warp, a prefix
-// over the counts of the first STAGE_PASS / 32 warps (`s_count`, one of two
-// arrays taken in turns, so that no pass overwrites what the last one's
-// prefix still reads). Every thread of the CTA calls it. → the new count.
+// it is kept if its extent meets the unit, and written where `stage_place`
+// puts it. Every thread of the CTA calls it. → the new count.
 __device__ __forceinline__ int stage_pass(Staged* buf, int n, int* s_count,
                                           int idx, int cls,
                                           const float* t0, const float* t1,
@@ -441,20 +479,10 @@ __device__ __forceinline__ int stage_pass(Staged* buf, int n, int* s_count,
     keep = e.x1 >= u.x_lo && e.x0 <= u.x_hi && e.y1 >= u.y_lo
            && e.y0 <= u.y_hi;
   }
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  if (tid < STAGE_PASS && lane == 0) s_count[warp] = __popc(ballot);
-  __syncthreads();
-  int base = n, total = 0;
-#pragma unroll
-  for (int w = 0; w < STAGE_PASS / 32; ++w) {
-    const int cw = s_count[w];
-    if (w < warp) base += cw;
-    total += cw;
-  }
+  int total;
+  const int at = stage_place(n, s_count, keep, total);
   if (keep) {
-    Staged& s = buf[base + __popc(ballot & ((1u << lane) - 1u))];
+    Staged& s = buf[at];
     const int nc = cls == 0 ? 16 : 8;
     for (int j = 0; j < nc; ++j) s.t[j] = c[j];
     if (cls == 1) {

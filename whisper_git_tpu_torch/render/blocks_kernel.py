@@ -11,8 +11,8 @@ The same per-command math as the tile rasterizer (`raster_kernel`), over
 an ordered list of blocks per (layer, class) instead of one bins table per
 class. `layers_blocks` is a tuple per layer of three per-class block
 tuples in (shapes, glyphs, images) index order; within a layer the classes
-composite in z order shapes → images → glyphs. A block is
-`(tables, bins, lo, hi)`:
+composite in z order shapes → images → glyphs. A block is of one of three
+kinds. The plain block is `(tables, bins, lo, hi)`:
 
   tables  the class's f32 command tables: (shapes (N,16), shape_clips
           (N,4)), (glyphs (N,8), glyph_colors (N,4), glyph_clips (N,4)) or
@@ -20,6 +20,16 @@ composite in z order shapes → images → glyphs. A block is
   bins    (T, k) i32 indices into those tables, −1 = empty slot
   lo      (T,) i32 first slot of each tile's row to composite, or None (0)
   hi      (T,) i32 one past the last slot
+
+The frame cache's per-frame inputs come as the two others, which the kernel
+resolves from the frame blob as it stages commands, so that no pass runs
+between the blob's upload and the launch: a `WindowBlock` (a scroll
+window's cached tables and pair bins, moved and cut by the window's uniform
+row in the blob, its pair-bin row picked per tile from the scroll offset)
+and a `TailBlock` (a layer's volatile tail, i16 tables and bins in the
+blob, de-quantized as they are read). `frame.resolve_blocks` turns both
+into plain blocks with torch, value for value; the plain version draws
+that.
 
 With a background the canvas starts opaque and the result is the
 (H, W, 4) u8 frame; with `background=None` it starts transparent and the
@@ -59,6 +69,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,7 +84,49 @@ TILE_W = K.TILE_W
 # Z order of the classes within a layer: shapes, images, glyphs.
 Z_ORDER = (0, 2, 1)
 _N_TABLES = (2, 3, 2)
+# The columns of each class's tables, in the order the frame blob holds a
+# tail's seven tables (rasterizer._PART_SPECS).
 _TABLE_COLS = ((16, 4), (8, 4, 4), (8, 4))
+
+
+class WindowBlock(NamedTuple):
+    """A scroll window's commands of one class at this frame's offset. The
+    window's uniform row in `blob` (i16 at index 8·`window`: dx, dy at 1/8
+    px, the clip x0, y0, x1, y1 at 1/4 px) moves the commands and cuts
+    their clips; its (row0, WR) row (at 8·(`n_windows` + `window`), a pair
+    a class) and dy pick each tile's pair-bin row a = floor((y − dy) / 64)
+    − row0, whose `counts` entry is the tile's `hi` where 0 ≤ a < WR and
+    0 elsewhere."""
+    tables: tuple          # the class's f32 tables, window coordinates
+    P: torch.Tensor        # (wr_cap, tiles_x, kP) i32 pair bins
+    counts: torch.Tensor   # (wr_cap, tiles_x) i32
+    blob: torch.Tensor     # the frame blob, i16
+    window: int
+    n_windows: int
+
+
+class TailBlock(NamedTuple):
+    """A layer's volatile tail of one class, as the frame blob holds it:
+    the tail's seven i16 tables from element `at` (`caps` rows of the
+    shapes, glyphs and images), this class's (T, k) i16 bins from element
+    `bins`, −1 an empty slot. Each value times its column's reciprocal
+    scale is the table's f32 value; every slot of a row is drawn."""
+    blob: torch.Tensor     # the frame blob, i16
+    at: int
+    caps: tuple
+    bins: int
+    k: int
+
+
+def tail_tables(at: int, caps: tuple, ci: int) -> tuple:
+    """The element offsets in the blob of class `ci`'s tables of a tail
+    whose seven tables start at `at`."""
+    fo = at + sum(caps[c] * sum(_TABLE_COLS[c]) for c in range(ci))
+    out = []
+    for cols in _TABLE_COLS[ci]:
+        out.append(fo)
+        fo += caps[ci] * cols
+    return tuple(out)
 
 
 def quantize_i16(layer_f32: torch.Tensor) -> torch.Tensor:
@@ -147,16 +200,20 @@ def render_tiles_blocks_plain(layers_blocks, font_tex, image_atlas,
                               layer_i16: bool = False,
                               tile_rect: tuple | None = None
                               ) -> torch.Tensor:
-    """The plain version of `render_tiles_blocks`: batched over tiles,
-    looping k over each block's bin width with slots outside [lo, hi)
-    masked, on the per-command functions of `render_tiles_plain`; the rows
-    of the rect (`slice_rect`) are rendered, then cut to it and
+    """The plain version of `render_tiles_blocks`: window and tail blocks
+    resolved to plain ones (`frame.resolve_blocks`), then batched over
+    tiles, looping k over each block's bin width with slots outside [lo,
+    hi) masked, on the per-command functions of `render_tiles_plain`; the
+    rows of the rect (`slice_rect`) are rendered, then cut to it and
     quantized."""
+    from .frame import resolve_blocks
+
     _check_modes(background, layer_i16)
     rect, (out_h, out_w) = slice_rect(n_tiles, tile0, tile_rect, tiles_y,
                                       tiles_x, height, width)
     if rect is None:
         return _empty(background, layer_i16, out_w, font_tex.device)
+    layers_blocks = resolve_blocks(layers_blocks, tiles_y, tiles_x)
     ty0, tx0, ty1, _ = rect
     rows = slice(ty0 * tiles_x, ty1 * tiles_x)
     grid = K._TileGrid(tiles_y, tiles_x, font_tex.device, rows.start,
@@ -185,13 +242,15 @@ def render_tiles_blocks_plain(layers_blocks, font_tex, image_atlas,
 # Mirror of `BlockDesc` in csrc/raster_blocks.cu (pointers as u64).
 _BLOCK_DESC = np.dtype([("t0", "<u8"), ("t1", "<u8"), ("t2", "<u8"),
                         ("bins", "<u8"), ("lo", "<u8"), ("hi", "<u8"),
-                        ("cls", "<i4"), ("k", "<i4")])
-_BLOCK_PACK = struct.Struct("<6Q2i")   # the same row, field by field
+                        ("cls", "<i4"), ("k", "<i4"), ("kind", "<i4"),
+                        ("aux", "<i4")])
+_BLOCK_PACK = struct.Struct("<6Q4i")   # the same row, field by field
+_PLAIN, _WINDOW, _TAIL = 0, 1, 2       # `kind`
 
 # Block descriptors that ride in the launch's parameter block by value
-# (MAX_INLINE_BLOCKS in csrc/raster_blocks.cu: 64 x 56 B and the rest of the
-# block stay under the 4 KB a launch may carry); a longer list goes through
-# an array in device memory.
+# (MAX_INLINE_BLOCKS in csrc/raster_blocks.cu: 64 x 64 B and the rest of the
+# block, 4192 B, within the 32764 B a launch carries on Volta and later
+# since CUDA 12.1); a longer list goes through an array in device memory.
 MAX_INLINE_BLOCKS = 64
 # The unit of a tile a CTA owns: STRIP_W columns by 4 * ROWS_PER_THREAD
 # rows. 32 x 16 (16 CTAs a tile) measured fastest; csrc/raster_blocks.cu
@@ -247,41 +306,90 @@ def build() -> dict:
     return K.build_library(_LIB, "raster_blocks.cu", _bind)
 
 
-def _descriptors(layers_blocks, T: int, device) -> tuple[np.ndarray, list]:
+def _check_tables(tables, ci: int, label: str, device) -> None:
+    if len(tables) != _N_TABLES[ci]:
+        raise ValueError(f"{_WHO}: {label} has {len(tables)} tables, class "
+                         f"takes {_N_TABLES[ci]}")
+    n = tables[0].shape[0]
+    for tb, cols in zip(tables, _TABLE_COLS[ci]):
+        K.check_tensor(tb, f"{label} table", torch.float32, device, 2, _WHO)
+        if tuple(tb.shape) != (n, cols):
+            raise ValueError(f"{_WHO}: {label} table is {tuple(tb.shape)}, "
+                             f"expected ({n}, {cols})")
+
+
+def _check_blob(blob, end: int, label: str, device) -> None:
+    K.check_tensor(blob, f"{label} blob", torch.int16, device, 1, _WHO)
+    if end > blob.numel():
+        raise ValueError(f"{_WHO}: {label} reads the blob to {end}, past its "
+                         f"{blob.numel()} values")
+
+
+def _descriptor(block, ci: int, label: str, tiles_y: int, tiles_x: int,
+                device) -> tuple[bytes, list]:
+    """One block's descriptor row, and the tensors it points at; raises on
+    what the kernel does not take."""
+    T = tiles_y * tiles_x
+    if isinstance(block, WindowBlock):
+        _check_tables(block.tables, ci, label, device)
+        P, counts, blob = block.P, block.counts, block.blob
+        K.check_tensor(P, f"{label} pair bins", torch.int32, device, 3, _WHO)
+        K.check_tensor(counts, f"{label} pair counts", torch.int32, device, 2,
+                       _WHO)
+        if P.shape[1] != tiles_x or tuple(counts.shape) != tuple(P.shape[:2]):
+            raise ValueError(f"{_WHO}: {label} pair bins {tuple(P.shape)} and "
+                             f"counts {tuple(counts.shape)} do not match "
+                             f"{tiles_x} tile columns")
+        if not 0 <= block.window < block.n_windows:
+            raise ValueError(f"{_WHO}: {label} is window {block.window} of "
+                             f"{block.n_windows}")
+        _check_blob(blob, 8 * (block.n_windows + block.window + 1), label,
+                    device)
+        ptrs = [tb.data_ptr() for tb in block.tables]
+        return _BLOCK_PACK.pack(
+            *ptrs, *[0] * (3 - len(ptrs)), P.data_ptr(),
+            blob.data_ptr() + 16 * block.window, counts.data_ptr(), ci,
+            P.shape[2], _WINDOW, 8 * block.n_windows), \
+            [*block.tables, P, counts, blob]
+    if isinstance(block, TailBlock):
+        blob = block.blob
+        offs = tail_tables(block.at, block.caps, ci)
+        end = block.at + sum(c * sum(cols)
+                             for c, cols in zip(block.caps, _TABLE_COLS))
+        _check_blob(blob, max(end, block.bins + T * block.k), label, device)
+        ptrs = [blob.data_ptr() + 2 * o for o in offs]
+        return _BLOCK_PACK.pack(
+            *ptrs, *[0] * (3 - len(ptrs)), blob.data_ptr() + 2 * block.bins,
+            0, 0, ci, block.k, _TAIL, 0), [blob]
+    tables, bins, lo, hi = block
+    _check_tables(tables, ci, label, device)
+    K.check_tensor(bins, f"{label} bins", torch.int32, device, 2, _WHO)
+    bounds = [hi] if lo is None else [lo, hi]
+    for bd in bounds:
+        K.check_tensor(bd, f"{label} bound", torch.int32, device, 1, _WHO)
+    if bins.shape[0] != T or any(b.shape[0] != T for b in bounds):
+        raise ValueError(f"{_WHO}: {label} bins or bounds do not have {T} "
+                         "rows")
+    ptrs = [tb.data_ptr() for tb in tables]
+    return _BLOCK_PACK.pack(
+        *ptrs, *[0] * (3 - len(ptrs)), bins.data_ptr(),
+        0 if lo is None else lo.data_ptr(), hi.data_ptr(), ci, bins.shape[1],
+        _PLAIN, 0), [*tables, bins, *bounds]
+
+
+def _descriptors(layers_blocks, tiles_y: int, tiles_x: int,
+                 device) -> tuple[np.ndarray, list]:
     """The flat z-ordered descriptor array of `layers_blocks`, and every
     tensor it points at (to be kept alive until the launch is enqueued)."""
     rows, keep = [], []
     for li, cls_lists in enumerate(layers_blocks):
         for ci in Z_ORDER:
-            for bi, (tables, bins, lo, hi) in enumerate(cls_lists[ci]):
-                label = f"layer {li} class {ci} block {bi}"
-                if len(tables) != _N_TABLES[ci]:
-                    raise ValueError(f"{_WHO}: {label} has {len(tables)} "
-                                     f"tables, class takes {_N_TABLES[ci]}")
-                n = tables[0].shape[0]
-                for tb, cols in zip(tables, _TABLE_COLS[ci]):
-                    K.check_tensor(tb, f"{label} table", torch.float32,
-                                   device, 2, _WHO)
-                    if tuple(tb.shape) != (n, cols):
-                        raise ValueError(
-                            f"{_WHO}: {label} table is {tuple(tb.shape)}, "
-                            f"expected ({n}, {cols})")
-                K.check_tensor(bins, f"{label} bins", torch.int32, device, 2,
-                               _WHO)
-                bounds = [hi] if lo is None else [lo, hi]
-                for bd in bounds:
-                    K.check_tensor(bd, f"{label} bound", torch.int32, device,
-                                   1, _WHO)
-                if bins.shape[0] != T or any(b.shape[0] != T for b in bounds):
-                    raise ValueError(f"{_WHO}: {label} bins or bounds do not "
-                                     f"have {T} rows")
-                ptrs = [tb.data_ptr() for tb in tables] + [0] * (
-                    3 - len(tables))
-                rows.append(_BLOCK_PACK.pack(
-                    *ptrs, bins.data_ptr(),
-                    0 if lo is None else lo.data_ptr(), hi.data_ptr(), ci,
-                    bins.shape[1]))
-                keep += [*tables, bins, *bounds]
+            for bi, block in enumerate(cls_lists[ci]):
+                row, tensors = _descriptor(
+                    block, ci, f"layer {li} class {ci} block {bi}", tiles_y,
+                    tiles_x, device)
+                rows.append(row)
+                keep += tensors
     return np.frombuffer(b"".join(rows), dtype=_BLOCK_DESC), keep
 
 
@@ -294,7 +402,7 @@ def _launch(layers_blocks, font_tex, image_atlas, background, tiles_y,
                                                    tiles_x, height, width)
     build()
     lib = _LIB["lib"]
-    desc, keep = _descriptors(layers_blocks, tiles_y * tiles_x, device)
+    desc, keep = _descriptors(layers_blocks, tiles_y, tiles_x, device)
     p = _BlocksParams()
     desc_dev = K.place_descriptors(p, "blocks", "inline_blocks", desc,
                                    MAX_INLINE_BLOCKS, device)

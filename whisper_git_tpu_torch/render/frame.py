@@ -33,7 +33,12 @@ frame stream: between consecutive frames almost nothing changes.
 
 Everything renders through `blocks_kernel.render_tiles_blocks` (K2), whose
 per-command functions are the packed path's, so the frame is bit-identical
-to the packed path's. Under a render mesh (render/meshstate.py) each shard
+to the packed path's. Between the frame blob's upload and K2 nothing runs:
+`build_blocks` hands K2 each window as its cached tables and pair bins and
+each volatile tail as offsets in the blob, and K2 moves the window's
+commands, picks its pair-bin rows and de-quantizes the tail itself
+(`resolve_blocks` is the same in torch, for the plain version). Under a
+render mesh (render/meshstate.py) each shard
 renders a slice of whole tile rows through K2 on its device, and the slices
 are gathered (`_render_tiles_blocks_sharded`; parallel/mesh.py has the
 device model). Times and upload sizes measured on the card are in
@@ -57,7 +62,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .. import tracing
 from ..tracing import span
 from . import rasterizer as R
-from .blocks_kernel import render_tiles_blocks
+from .blocks_kernel import TailBlock, WindowBlock, render_tiles_blocks
 from .scene import Scene
 from .transfer import upload
 
@@ -571,58 +576,31 @@ def _uniform_scale(device) -> torch.Tensor:
 
 def build_blocks(frame_blob: torch.Tensor, chrome_args, win_args,
                  meta: tuple) -> tuple:
-    """The device half of a frame up to the kernel: the uniforms from the
-    frame blob, window tables shifted to screen coordinates, window pair
-    bins gathered by the scroll offset, the dynamic tables and bins from
-    the blob, and per (layer, class) the ordered block list: chrome
-    segment, window, chrome segment, …, dynamic tail. `frame_blob` is the
-    i16 blob on the device of the cached arguments."""
+    """A frame's block lists for K2, per (layer, class): chrome segment,
+    window, chrome segment, …, volatile tail. Host bookkeeping alone: no
+    tensor is made and nothing runs on the device. A chrome segment is a
+    plain block of the cached chrome tables; a window a `WindowBlock` of
+    its cached window-relative tables and pair bins; a volatile tail a
+    `TailBlock` at its offsets in `frame_blob`, the i16 blob on the device
+    of the cached arguments. K2 resolves the last two from the blob
+    (`resolve_blocks` does it in torch); they are counted in
+    `blocks.windows_inline` and `blocks.tails_inline`."""
     tiles_y, tiles_x, n_win, win_meta, layers_meta = meta
     T = tiles_y * tiles_x
-    if n_win:
-        head = frame_blob[:n_win * 16].reshape(2, n_win, 8)
-        uni = head[0].float() * _uniform_scale(frame_blob.device)
-        uni2 = head[1].int()
     fo = n_win * 16
-
-    # Windows: shift tables to screen coords; gather pair bins by dy.
-    win_blocks = []
-    for wi in range(n_win):
-        layer, caps, cls_meta = win_meta[wi]
-        shifted = _shift_parts(win_args[wi][0], uni[wi])
-        av, ok = _pair_rows(uni2[wi], uni[wi, 1], tiles_y)
-        cls_blocks = []
-        for ci in range(3):
-            cm = cls_meta[ci]
-            if cm is None:
-                cls_blocks.append(None)
-                continue
-            P, counts = win_args[wi][1][ci]
-            cls_blocks.append(_gather_pair_bins(P, counts, av[ci], ok[ci],
-                                                cm[0]))
-        win_blocks.append((shifted, tuple(cls_blocks)))
-
-    # Per-layer block lists.
     layers_blocks = []
     for li, (caps, ks, lws, dyn_meta, has) in enumerate(layers_meta):
         parts, bins3, segs3 = chrome_args[li]
         dyn_caps, dyn_ks = dyn_meta[0], dyn_meta[1]  # full grid here
-        # dynamic tables + bins from the frame blob
-        dyn_tables = None
+        at = fo
         if sum(dyn_caps):
-            nwords = sum(dyn_caps[_PART_CLS[name]] * cols
-                         for name, cols, _ in R._PART_SPECS)
-            dyn_tables = _dequant_parts(frame_blob[fo:fo + nwords], dyn_caps)
-            fo += nwords
-        dyn_bins = []
-        for ci in range(3):
-            k = dyn_ks[ci]
-            if k == 0:
-                dyn_bins.append(None)
-                continue
-            b = frame_blob[fo:fo + T * k].reshape(T, k).int()
+            fo += sum(dyn_caps[_PART_CLS[name]] * cols
+                      for name, cols, _ in R._PART_SPECS)
+        tails = []
+        for k in dyn_ks:
+            tails.append(TailBlock(frame_blob, at, dyn_caps, fo, k)
+                         if k and sum(dyn_caps) else None)
             fo += T * k
-            dyn_bins.append((b, (b >= 0).sum(dim=1, dtype=torch.int32)))
         cls_lists = []
         for ci in range(3):
             blocks = []
@@ -633,20 +611,67 @@ def build_blocks(frame_blob: torch.Tensor, chrome_args, win_args,
                 if ks[ci]:
                     blocks.append((chrome_tables, bins3[ci],
                                    segs3[ci][si], segs3[ci][si + 1]))
-                if si < len(lws):
-                    # window order within the layer == pos order
-                    wsh, wcls = win_blocks[lws[si]]
-                    if wcls[ci] is not None:
-                        bins, cnt = wcls[ci]
-                        blocks.append((tuple(wsh[j] for j in tbl_idx), bins,
-                                       None, cnt))
-            if dyn_bins[ci] is not None and dyn_tables is not None:
-                b, cnt = dyn_bins[ci]
-                blocks.append((tuple(dyn_tables[j] for j in tbl_idx), b,
-                               None, cnt))
+                # window order within the layer == pos order
+                if si < len(lws) and win_meta[lws[si]][2][ci] is not None:
+                    wi = lws[si]
+                    P, counts = win_args[wi][1][ci]
+                    blocks.append(WindowBlock(
+                        tuple(win_args[wi][0][j] for j in tbl_idx), P,
+                        counts, frame_blob, wi, n_win))
+                    tracing.COUNTERS["blocks.windows_inline"] += 1
+            if tails[ci] is not None:
+                blocks.append(tails[ci])
+                tracing.COUNTERS["blocks.tails_inline"] += 1
             cls_lists.append(tuple(blocks))
         layers_blocks.append(tuple(cls_lists))
     return tuple(layers_blocks)
+
+
+def _class_parts(ci: int, tables: tuple) -> tuple:
+    """The seven tables of `_shift_parts` and `_dequant_parts` with class
+    `ci`'s in their places and no row of the others."""
+    parts = [tables[0].new_empty((0, cols))
+             for _, cols, _ in R._PART_SPECS]
+    for j, tb in zip(_CLS_TABLES[ci], tables):
+        parts[j] = tb
+    return tuple(parts)
+
+
+def resolve_blocks(layers_blocks, tiles_y: int, tiles_x: int) -> tuple:
+    """`layers_blocks` with every window and tail block made the plain
+    block K2 resolves it to, in torch on the blocks' device: a window's
+    uniform row from the blob (`_uniform_scale`), its tables moved and cut
+    (`_shift_parts`), its pair-bin rows picked and gathered (`_pair_rows`,
+    `_gather_pair_bins`); a tail's tables de-quantized (`_dequant_parts`)
+    and its bins widened to i32, each row's `hi` its count of entries.
+    Plain blocks are kept as they are."""
+    T = tiles_y * tiles_x
+
+    def plain(ci, block):
+        if isinstance(block, WindowBlock):
+            n, wi = block.n_windows, block.window
+            head = block.blob[:n * 16].reshape(2, n, 8)
+            u = head[0, wi].float() * _uniform_scale(block.blob.device)
+            shifted = _shift_parts(_class_parts(ci, block.tables), u)
+            av, ok = _pair_rows(head[1, wi].int(), u[1], tiles_y)
+            bins, cnt = _gather_pair_bins(block.P, block.counts, av[ci],
+                                          ok[ci], block.P.shape[2])
+            return (tuple(shifted[j] for j in _CLS_TABLES[ci]), bins, None,
+                    cnt)
+        if isinstance(block, TailBlock):
+            nwords = sum(block.caps[_PART_CLS[name]] * cols
+                         for name, cols, _ in R._PART_SPECS)
+            tables = _dequant_parts(block.blob[block.at:block.at + nwords],
+                                    block.caps)
+            b = block.blob[block.bins:block.bins + T * block.k].reshape(
+                T, block.k).int()
+            return (tuple(tables[j] for j in _CLS_TABLES[ci]), b, None,
+                    (b >= 0).sum(dim=1, dtype=torch.int32))
+        return block
+
+    return tuple(tuple(tuple(plain(ci, b) for b in blocks)
+                       for ci, blocks in enumerate(cls_lists))
+                 for cls_lists in layers_blocks)
 
 
 # ---------------------------------------------------------------------------
@@ -720,7 +745,10 @@ def replicate(tree, device):
                 tree.size(), tree.stride(), tree.storage_offset())
         return _replica(tree, device)
     if isinstance(tree, (tuple, list)):
-        return type(tree)(replicate(x, device) for x in tree)
+        items = [replicate(x, device) for x in tree]
+        # a block kind (a named tuple) takes its fields one by one
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
     if isinstance(tree, dict):
         return {k: replicate(v, device) for k, v in tree.items()}
     return tree

@@ -61,6 +61,9 @@ COUNTERS: dict = dict.fromkeys((
     # tails K3 decodes from the frame blob itself, and glyph or image
     # tails K2 pre-renders for it.
     "compose.tails_inline", "compose.tails_prerendered",
+    # The frame cache's blocks (`frame.build_blocks`) that K2 resolves from
+    # the frame blob itself: scroll windows, and volatile tails.
+    "blocks.windows_inline", "blocks.tails_inline",
     # Host-to-device copies of the render path (`render/transfer.py`), and
     # its own device-to-host reads.
     "upload.calls", "upload.bytes", "readback.calls", "readback.bytes",
