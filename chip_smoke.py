@@ -67,8 +67,7 @@ each fatal on failure:
               kernel alone from the profiler) beside its bound, and K1
               alone over K2 alone; K2 at the
               slab's size beside the former route (f32 layer, then the
-              quantize in torch ops); K1's and K2's unit of a tile and K3's
-              row split by measurement; K3 after a flush of the L2 and with
+              quantize in torch ops); K3 after a flush of the L2 and with
               an op list over the cap; the three
               paths' end-to-end frame time over the same integer offsets
               (host clock to a synchronize, median; first and plan-rebuild
@@ -617,6 +616,7 @@ def run_phases(torch, card: str, kind: str, work: str,
     from whisper_git_tpu_torch.render import frame as F
     from whisper_git_tpu_torch.render import raster_kernel as K
     from whisper_git_tpu_torch.render import rasterizer as P
+    from whisper_git_tpu_torch.render import wire
     from whisper_git_tpu_torch.render.rasterizer import (
         pack_scene, render_scene_device, unpack_layers)
     from whisper_git_tpu_torch.render.renderer import Renderer
@@ -1161,7 +1161,7 @@ def run_phases(torch, card: str, kind: str, work: str,
         layers = []
         for layer, sig in zip(args[0], args[6]):
             layers.append(tuple(
-                [(tuple(layer[j] for j in F._CLS_TABLES[ci]), layer[7 + ci],
+                [(tuple(layer[j] for j in wire.CLS_TABLES[ci]), layer[7 + ci],
                   None, torch.full((n_tiles,), layer[7 + ci].shape[1],
                                    dtype=torch.int32, device=dev))]
                 if sig[ci] else [] for ci in range(3)))
@@ -1306,7 +1306,7 @@ def run_phases(torch, card: str, kind: str, work: str,
                 for ci in B.Z_ORDER for block in cls_lists[ci]]
 
     bound1 = kernel_bound(torch, K, [
-        (ci, tuple(layer[j] for j in F._CLS_TABLES[ci]), layer[7 + ci],
+        (ci, tuple(layer[j] for j in wire.CLS_TABLES[ci]), layer[7 + ci],
          None, None)
         for layer, sig in zip(args1[0], args1[6])
         for ci in B.Z_ORDER if sig[ci]], out1, args1[5])
@@ -1365,7 +1365,7 @@ def run_phases(torch, card: str, kind: str, work: str,
     big_alone = [device_ms(big_k1)[0] for _ in range(2)]
     big_plain = event_ms(lambda: K.render_tiles_plain(*big_args), 1)
     big_bound = kernel_bound(torch, K, [
-        (ci, tuple(layer[j] for j in F._CLS_TABLES[ci]), layer[7 + ci],
+        (ci, tuple(layer[j] for j in wire.CLS_TABLES[ci]), layer[7 + ci],
          None, None)
         for layer, sig in zip(big_args[0], big_args[6])
         for ci in B.Z_ORDER if sig[ci]], big_k1(), big_args[5])
@@ -1420,49 +1420,14 @@ def run_phases(torch, card: str, kind: str, work: str,
         if min(ev[1], ev[2]) < bound[0]:
             fail("K2 at the slab's size reads faster than its bound")
 
-    # The splits, by measurement: the unit of a tile a K1 and a K2 CTA owns
-    # (K1 at the history view and at the oversized frame, K2 at the history
-    # view and at the slab of glyphs), the rows a K3 thread owns.
-    glyph_slab = [a for a, _, _ in slab_builds
-                  if [len(c) for c in a[0][0]].index(1) == 1]
-    chosen1 = (K.STRIP_W, K.ROWS_PER_THREAD)
-    chosen2 = (B.STRIP_W, B.ROWS_PER_THREAD)
-    parts1, parts2 = [], []
-    for strip, rows_pt in K.UNITS:
-        K.STRIP_W, K.ROWS_PER_THREAD = strip, rows_pt
-        B.STRIP_W, B.ROWS_PER_THREAD = strip, rows_pt
-        t_hist = device_ms(lambda: K.render_tiles(*args1))[0]
-        t_big = device_ms(lambda: K.render_tiles(*big_args))[0]
-        parts1.append(f"{strip}x{4 * rows_pt} {t_hist:.4f} ms at the history "
-                      f"view, {t_big:.4f} ms at {OW}x{OH}")
-        t_hist = device_ms(lambda: B.render_tiles_blocks(*args2))[0]
-        t_slab = (device_ms(lambda: B.render_tiles_blocks(
-            *glyph_slab[0], layer_i16=True))[0] if glyph_slab
-            else float("nan"))
-        parts2.append(f"{strip}x{4 * rows_pt} {t_hist:.4f} ms at the history "
-                      f"view, {t_slab:.4f} ms at the slab of glyphs")
-    K.STRIP_W, K.ROWS_PER_THREAD = chosen1
-    B.STRIP_W, B.ROWS_PER_THREAD = chosen2
-    for name, chosen, parts in (("K1", chosen1, parts1),
-                                ("K2", chosen2, parts2)):
-        log(f"timing [{card}]: {name}'s unit of a tile (columns x rows a "
-            f"CTA), the kernel alone (the port launches {chosen[0]}x"
-            f"{4 * chosen[1]}): " + "; ".join(parts))
-    chosen = CK.ROWS_PER_THREAD
-    parts = []
-    for rows_pt in (2, 4, 8):
-        CK.ROWS_PER_THREAD = rows_pt
+    # K3 alone on one frame's layers, back to back and after a flush of the
+    # L2, where a frame's layers may come from.
+    def k3_call():
+        return CK.compose_tiles(*pos3, **kw3, rows=rows3)
 
-        def k3_call():
-            return CK.compose_tiles(*pos3, **kw3, rows=rows3)
-
-        parts.append(f"{2 * rows_pt} rows a CTA {device_ms(k3_call)[0]:.4f} "
-                     f"ms, after a flush of the L2 "
-                     f"{device_ms(k3_call, flush=flush_buf)[0]:.4f} ms")
-    CK.ROWS_PER_THREAD = chosen
-    log(f"timing [{card}]: K3's row split, the kernel alone, back to back "
-        f"on one frame's layers (the port launches {2 * chosen} rows a "
-        "CTA): " + "; ".join(parts))
+    log(f"timing [{card}]: K3 alone, back to back on one frame's layers "
+        f"{device_ms(k3_call)[0]:.4f} ms, after a flush of the L2 "
+        f"{device_ms(k3_call, flush=flush_buf)[0]:.4f} ms")
 
     # K3 with an op list over the cap, through the device array: the
     # smallest chrome layer blended again until the list is one too long.
@@ -2093,6 +2058,7 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
     from whisper_git_tpu_torch.render import compose_kernel as CK
     from whisper_git_tpu_torch.render import frame as F
     from whisper_git_tpu_torch.render import raster_kernel as K
+    from whisper_git_tpu_torch.render import wire
     from whisper_git_tpu_torch.render.meshstate import set_render_mesh
     from whisper_git_tpu_torch.render.rasterizer import render_scene_device
     from whisper_git_tpu_torch.tools.fixtures import steady_window_scene
@@ -2331,7 +2297,7 @@ def run_mesh_phase(torch, card: str, renderer, h) -> dict:
                 for tables, bins, lo, hi in cls_lists[ci]]
 
     def runs1(layer_data, sig_, rows):
-        return [(ci, tuple(layer[j] for j in F._CLS_TABLES[ci]),
+        return [(ci, tuple(layer[j] for j in wire.CLS_TABLES[ci]),
                  layer[7 + ci][rows], None, None)
                 for layer, s in zip(layer_data, sig_)
                 for ci in B.Z_ORDER if s[ci]]

@@ -39,6 +39,7 @@ from whisper_git_tpu_torch.render import compose_kernel as CK
 from whisper_git_tpu_torch.render import frame as PF
 from whisper_git_tpu_torch.render import meshstate as PMS
 from whisper_git_tpu_torch.render import rasterizer as P
+from whisper_git_tpu_torch.render import wire as W
 from whisper_git_tpu_torch.render.blocks_kernel import render_tiles_blocks
 from whisper_git_tpu_torch.render.raster_kernel import render_tiles
 from whisper_git_tpu_torch.render.renderer import Renderer
@@ -730,11 +731,10 @@ def _old_frame_tails(blob, font_tex, image_atlas, height, width, tiles_y,
         sub_w = min(ts * PC.TILE_W, width - x0px)
         dyn_tables = None
         if sum(dyn_caps):
-            nwords = sum(dyn_caps[PF._PART_CLS[name]] * cols
-                         for name, cols, _ in P._PART_SPECS)
-            dyn_tables = PF._dequant_parts(blob[fo:fo + nwords], dyn_caps)
+            nwords = W.words(dyn_caps)
+            dyn_tables = W.dequantize(blob[fo:fo + nwords], dyn_caps)
             if x0px:
-                dyn_tables = PF._shift_parts(dyn_tables, torch.tensor(
+                dyn_tables = W.shift(dyn_tables, torch.tensor(
                     [float(-x0px), 0.0, -1e6, -1e6, 1e6, 1e6],
                     dtype=torch.float32, device=blob.device))
             fo += nwords
@@ -746,7 +746,7 @@ def _old_frame_tails(blob, font_tex, image_atlas, height, width, tiles_y,
             fo += Tsub * k
             if dyn_tables is None or sub_w <= 0:
                 continue
-            tabs = tuple(dyn_tables[j] for j in PC._CLS_TBL[ci])
+            tabs = tuple(dyn_tables[j] for j in W.CLS_TABLES[ci])
             cnt = (b >= 0).sum(dim=1, dtype=torch.int32)
             if ci == 0:
                 dyns[(li, ci)] = (tabs[0].contiguous(), tabs[1].contiguous(),

@@ -20,9 +20,8 @@ import torch
 import whisper_git_tpu.render.pallas_compose as PC
 import whisper_git_tpu.render.pallas_raster as PR
 from whisper_git_tpu_torch.render import compose_kernel as CK
-from whisper_git_tpu_torch.render import frame as PF
 from whisper_git_tpu_torch.render import raster_kernel as K
-from whisper_git_tpu_torch.render import rasterizer as R
+from whisper_git_tpu_torch.render import wire as W
 from whisper_git_tpu_torch.tools.synthetic import (COMPOSE_CASES,
                                                    compose_args_to,
                                                    synthetic_compose)
@@ -74,8 +73,8 @@ def old_decode(blob: torch.Tensor, starts: slice, dyns: dict, ops: tuple,
     """The decode the compose path ran with torch ops before the kernel
     read the blob itself (`compose.frame_tails` then): the slab starts as
     i32, and each inline shape tail's tables de-quantized over its layer's
-    seven parts (`frame._dequant_parts`, the shapes alone), translated to
-    its sub-grid (`frame._shift_parts`), its bins as i32 and their
+    seven parts (`wire.dequantize`, the shapes alone), translated to
+    its sub-grid (`wire.shift`), its bins as i32 and their
     non-negative slots counted. → (starts, dyns) as the blend takes them;
     a pre-rendered tail is kept as it is."""
     out = dict(dyns)
@@ -86,10 +85,10 @@ def old_decode(blob: torch.Tensor, starts: slice, dyns: dict, ops: tuple,
         shapes_at, clips_at, bins_at, cap, k = dyns[key]
         c0, ts = op[3], op[4]
         assert clips_at == shapes_at + cap * 16
-        tables = PF._dequant_parts(blob[shapes_at:shapes_at + cap * 20],
-                                   (cap, 0, 0))
+        tables = W.dequantize(blob[shapes_at:shapes_at + cap * 20],
+                              (cap, 0, 0))
         if c0 * TILE_W:
-            tables = PF._shift_parts(tables, torch.tensor(
+            tables = W.shift(tables, torch.tensor(
                 [float(-c0 * TILE_W), 0.0, -1e6, -1e6, 1e6, 1e6],
                 dtype=torch.float32))
         b = blob[bins_at:bins_at + tiles_y * ts * k].reshape(-1, k).int()
@@ -173,23 +172,23 @@ def test_kernel_reciprocals_are_the_blob_scales():
     are np.float32(1 / scale) of the blob's shape and clip columns, powers
     of two, and the `__constant__` table the compose and blocks kernels
     share holds the same, beside the quad's and the glyph colour's."""
-    shape_scale = R._part_scale("shapes", 16, None)
-    clip_scale = R._part_scale("shape_clips", 4, 4.0)
-    assert CK.SHAPE_INV.dtype == np.float32
-    assert np.array_equal(CK.SHAPE_INV, np.float32(1.0) / shape_scale)
-    assert (clip_scale == np.float32(1.0) / CK.CLIP_INV).all()
+    shape_scale, clip_scale = W.SCALES[0], W.SCALES[1]
+    SHAPE_INV, CLIP_INV = W.INV_SCALES[0], W.INV_SCALES[1]
+    assert SHAPE_INV.dtype == np.float32
+    assert np.array_equal(SHAPE_INV, np.float32(1.0) / shape_scale)
+    assert (clip_scale == np.float32(1.0) / CLIP_INV).all()
     assert all(np.log2(v) == int(np.log2(v)) for v in shape_scale)
     with open(os.path.join(K.CSRC_DIR, "raster_steps.cuh")) as f:
         src = f.read()
     table = src[src.index("SHAPE_INV[16] = {"):].split("}")[0]
     vals = [np.float32(1.0) / np.float32(x.split("/")[1].strip()[:-1])
             for x in table.split("{")[1].split(",")]
-    assert np.array_equal(np.float32(vals), CK.SHAPE_INV)
+    assert np.array_equal(np.float32(vals), SHAPE_INV)
     assert "CLIP_INV = 1.0f / 4.0f;" in src
-    quad = R._part_scale("glyphs", 8, 8.0)
+    quad = W.SCALES[2]
     assert (quad == np.float32([8.0] * 4 + [1.0] * 4)).all()
     assert "QUAD_XY_INV = 1.0f / 8.0f;" in src
-    assert R._part_scale("glyph_colors", 4, 8192.0)[0] == 8192.0
+    assert W.SCALES[3][0] == 8192.0
     assert "COLOUR_INV = 1.0f / 8192.0f;" in src
     for name in ("compose_tiles.cu", "raster_blocks.cu"):
         with open(os.path.join(K.CSRC_DIR, name)) as f:
@@ -277,7 +276,7 @@ def test_inline_tail_is_evaluated_at_subgrid_local_x():
     bins = np.full((3, 8), -1, np.int16)
     bins[0, 0] = 0
     tail = np.concatenate([
-        np.rint(shapes * R._SHAPE_COL_SCALE).astype(np.int16).ravel(),
+        np.rint(shapes * W.SHAPE_COL_SCALE).astype(np.int16).ravel(),
         np.rint(clips * 4.0).astype(np.int16).ravel(), bins.ravel()])
     out = _one_op(("dyni", 0, 0, 2, 1), dyns={(0, 0): (0, 128, 160, 8, 8)},
                   tail=tail)

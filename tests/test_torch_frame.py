@@ -21,6 +21,7 @@ from whisper_git_tpu.ui.theme import DARK
 from whisper_git_tpu_torch.render import blocks_kernel as B
 from whisper_git_tpu_torch.render import frame as PF
 from whisper_git_tpu_torch.render import rasterizer as P
+from whisper_git_tpu_torch.render import wire as W
 from whisper_git_tpu_torch.render.blocks_kernel import render_tiles_blocks
 from whisper_git_tpu_torch.render.renderer import Renderer
 from whisper_git_tpu_torch.tools.synthetic import synthetic_scene
@@ -150,19 +151,17 @@ def test_pack_frame_byte_equal_on_history_view(history):
 def test_dequant_parts_bit_equal():
     rng = np.random.default_rng(0)
     caps = (64, 256, 64)
-    n = sum(caps[PF._PART_CLS[name]] * cols
-            for name, cols, _ in P._PART_SPECS)
+    n = W.words(caps)
     blob = rng.integers(-32767, 32768, n).astype(np.int16)
     _same(F._dequant_parts(jnp.asarray(blob), caps),
-          PF._dequant_parts(torch.from_numpy(blob), caps), "dequant")
+          W.dequantize(torch.from_numpy(blob), caps), "dequant")
 
 
 @pytest.mark.parametrize("dy", (0.0, -37.375, 63.875, 100.25))
 def test_shift_parts_bit_equal(dy):
     rng = np.random.default_rng(1)
     caps = (64, 64, 64)
-    n = sum(caps[PF._PART_CLS[name]] * cols
-            for name, cols, _ in P._PART_SPECS)
+    n = W.words(caps)
     blob = rng.integers(-3000, 3000, n).astype(np.int16)
     blob[::16] = rng.integers(0, 2, blob[::16].shape) * 8  # shape types 0/1
     dx = np.float32(12.5)
@@ -171,7 +170,7 @@ def test_shift_parts_bit_equal(dy):
                           jnp.float32(dx), jnp.float32(dy),
                           tuple(jnp.float32(c) for c in clip))
     u = torch.tensor([dx, np.float32(dy), *clip, 0.0, 0.0])
-    got = PF._shift_parts(PF._dequant_parts(torch.from_numpy(blob), caps), u)
+    got = W.shift(W.dequantize(torch.from_numpy(blob), caps), u)
     _same(want, got, f"shift dy={dy}")
 
 
@@ -216,20 +215,20 @@ def test_pair_bin_gather_bit_equal(dy):
 def _torch_route_blocks(frame_blob, chrome_args, win_args, meta):
     """A frame's plain blocks made in torch over the whole frame at once,
     in the order K2 draws them: the uniforms from the frame blob, every
-    window's tables moved (`_shift_parts`) and its pair bins gathered by
+    window's tables moved (`wire.shift`) and its pair bins gathered by
     the scroll offset (`_pair_rows`, `_gather_pair_bins`), each layer's
-    volatile tail de-quantized from the blob (`_dequant_parts`) with its
+    volatile tail de-quantized from the blob (`wire.dequantize`) with its
     bins widened and counted."""
     tiles_y, tiles_x, n_win, win_meta, layers_meta = meta
     T = tiles_y * tiles_x
     if n_win:
         head = frame_blob[:n_win * 16].reshape(2, n_win, 8)
-        uni = head[0].float() * PF._uniform_scale(frame_blob.device)
+        uni = W.uniform(head[0])
         uni2 = head[1].int()
     fo = n_win * 16
     win_blocks = []
     for wi in range(n_win):
-        shifted = PF._shift_parts(win_args[wi][0], uni[wi])
+        shifted = W.shift(win_args[wi][0], uni[wi])
         av, ok = PF._pair_rows(uni2[wi], uni[wi, 1], tiles_y)
         cls_blocks = []
         for ci in range(3):
@@ -247,10 +246,8 @@ def _torch_route_blocks(frame_blob, chrome_args, win_args, meta):
         dyn_caps, dyn_ks = dyn_meta[0], dyn_meta[1]
         dyn_tables = None
         if sum(dyn_caps):
-            nwords = sum(dyn_caps[PF._PART_CLS[name]] * cols
-                         for name, cols, _ in P._PART_SPECS)
-            dyn_tables = PF._dequant_parts(frame_blob[fo:fo + nwords],
-                                           dyn_caps)
+            nwords = W.words(dyn_caps)
+            dyn_tables = W.dequantize(frame_blob[fo:fo + nwords], dyn_caps)
             fo += nwords
         dyn_bins = []
         for k in dyn_ks:
@@ -263,7 +260,7 @@ def _torch_route_blocks(frame_blob, chrome_args, win_args, meta):
         cls_lists = []
         for ci in range(3):
             blocks = []
-            idx = PF._CLS_TABLES[ci]
+            idx = W.CLS_TABLES[ci]
             for si in range(len(lws) + 1):
                 if ks[ci]:
                     blocks.append((tuple(parts[j] for j in idx), bins3[ci],
@@ -381,7 +378,7 @@ def test_a_drag_frames_descriptors_ride_inline(history):
             assert row["bins"] == b.P.data_ptr() and row["k"] == b.P.shape[2]
             assert row["hi"] == b.counts.data_ptr()
         elif isinstance(b, PF.TailBlock):
-            offs = B.tail_tables(b.at, b.caps, ci)
+            offs = W.table_offsets(b.at, b.caps, ci)
             assert row["kind"] == 2 and row["k"] == b.k
             assert [row[f] for f in ("t0", "t1", "t2")][:len(offs)] == \
                 [base + 2 * o for o in offs]
@@ -394,15 +391,15 @@ def test_a_drag_frames_descriptors_ride_inline(history):
 
 
 def test_tail_tables_follow_the_part_specs():
-    """`tail_tables` finds each class's tables where `_quant_parts_blob`
-    puts them: the seven parts of `_PART_SPECS` one after another."""
+    """`table_offsets` finds each class's tables where `quantize` puts
+    them: the seven parts of `PARTS` one after another."""
     caps = (8, 16, 4)
     at, fo, want = 40, 40, {}
-    for name, cols, _ in P._PART_SPECS:
-        want.setdefault(PF._PART_CLS[name], []).append(fo)
-        fo += caps[PF._PART_CLS[name]] * cols
+    for (name, cols), c in zip(W.PARTS, W.PART_CLS):
+        want.setdefault(c, []).append(fo)
+        fo += caps[c] * cols
     for ci in range(3):
-        assert list(B.tail_tables(at, caps, ci)) == want[ci]
+        assert list(W.table_offsets(at, caps, ci)) == want[ci]
 
 
 # ---- (e) the slice ------------------------------------------------------------

@@ -473,19 +473,26 @@ def test_layer_row_refuses_what_the_kernel_cannot_take(case):
                      torch.device("cpu"), T)
 
 
-def test_default_unit_is_compiled():
-    """The units of a tile the wrappers launch by default, and every unit
-    the smoke test sweeps, are pairs that both kernels' sources compile."""
+@pytest.mark.parametrize("source, kernel, unit", (
+    ("raster_tiles.cu", "raster_tiles_kernel",
+     (("UNIT_W", 32), ("UNIT_ROWS", 4))),
+    ("raster_blocks.cu", "raster_blocks_kernel",
+     (("UNIT_W", 32), ("UNIT_ROWS", 4))),
+    ("compose_tiles.cu", "compose_tiles_kernel", (("COMPOSE_ROWS", 4),))))
+def test_default_unit_is_compiled(source, kernel, unit):
+    """Each kernel's source instantiates exactly the unit its launch
+    function launches: the kernel template is named with arguments once,
+    in the launch, and they are the source's constants (K1's and K2's 32 x
+    16 unit of a tile, K3's 8 rows a CTA); the launch takes no unit from
+    its wrapper, only the parameters, the tile count and the stream."""
     import os
     import re
 
-    from whisper_git_tpu_torch.render import blocks_kernel as B
-
-    for source, macro in (("raster_tiles.cu", "RASTER_TILES_CASE"),
-                          ("raster_blocks.cu", "RASTER_BLOCKS_CASE")):
-        with open(os.path.join(K.CSRC_DIR, source)) as f:
-            pairs = {(int(w), int(r)) for w, r in re.findall(
-                macro + r"\((\d+), (\d+)\)", f.read())}
-        assert pairs == set(K.UNITS), source
-    assert (K.STRIP_W, K.ROWS_PER_THREAD) in K.UNITS
-    assert (B.STRIP_W, B.ROWS_PER_THREAD) in K.UNITS
+    with open(os.path.join(K.CSRC_DIR, source)) as f:
+        code = re.sub(r"//[^\n]*", "", f.read())
+    assert re.findall(kernel + r"\s*<([^>]*)>", code) == \
+        [", ".join(name for name, _ in unit)], source
+    for name, value in unit:
+        assert f"constexpr int {name} = {value};" in code, (source, name)
+    launches = re.findall(r"int \w+_launch\(([^)]*)\)", code)
+    assert len(launches) == 1 and len(launches[0].split(",")) == 3, source

@@ -37,9 +37,9 @@
 //    x 4 pixels, 16 CTAs a tile, 2080 a 1280x800 frame, eight resident on
 //    an SM at 64 registers), so a busy tile spreads over many SMs, the
 //    card's schedulers even out what the tiles do not, and the unrolled
-//    step functions stay small; the unit is a template parameter and
-//    `chip_smoke.py` times the shapes compiled below (whole-tile columns
-//    of 32 to 128 took 1.6 to 1.7 times as long);
+//    step functions stay small; the unit is a template parameter, and the
+//    one instantiated (UNIT_W, UNIT_ROWS) was the fastest of five measured
+//    (whole-tile columns of 32 to 128 took 1.6 to 1.7 times as long);
 //  * commands are staged in shared memory: 128 threads each take one slot of
 //    the tile's bins row, load the command's extent, drop it at once if it
 //    misses this unit, and the survivors are written in z order (a ballot
@@ -56,8 +56,8 @@
 //    is a branch per staged pass and no divergence. The per-tile part of a
 //    window (its pair-bin row and `hi`) is taken up front with the other
 //    blocks' bounds; the per-command part (the move, the clip, the
-//    de-quantize: the arithmetic of frame.py's _shift_parts and
-//    _dequant_parts, exact) runs in the staging thread, and the compositing
+//    de-quantize: the arithmetic of wire.py's shift and dequantize,
+//    exact) runs in the staging thread, and the compositing
 //    loop reads the staged values as before (decoding a command in every
 //    compositing thread's registers spilled the compose kernel). On an H100
 //    at the drag frames of the history view this costs K2 about 5 us a frame
@@ -184,7 +184,7 @@ __device__ __forceinline__ float table_value(bool tail, const void* tab,
 // and first colour value) in `c`, its clip in `clip`. A window's values
 // move by (dx, dy), a capsule's (type 1) both end points, a rect's, glyph's
 // or image's origin, and its clip is the window's cut by the moved one:
-// frame.py::_shift_parts, operation for operation.
+// wire.py::shift, operation for operation.
 __device__ __forceinline__ void resolved_command(const BlockDesc& d, int idx,
                                                  float c[8], float clip[4]) {
   const bool tail = d.kind == KIND_TAIL;
@@ -262,6 +262,11 @@ __device__ __forceinline__ int stage_resolved(Staged* buf, int n,
   }
   return n + total;
 }
+
+// The unit the launch takes: UNIT_W columns by ROW_STRIDE * UNIT_ROWS rows
+// (32 x 16, 16 CTAs a tile), the fastest of five units measured on an H100.
+constexpr int UNIT_W = 32;
+constexpr int UNIT_ROWS = 4;
 
 // A CTA owns a unit of a tile: STRIP_W columns by ROW_STRIDE * N_ROWS rows,
 // STRIP_W * ROW_STRIDE threads of N_ROWS pixels each. A warp holds 32
@@ -393,30 +398,15 @@ __global__ void __launch_bounds__(STRIP_W * ROW_STRIDE,
 extern "C" {
 
 // Launch the tiles of the rect in `params` on `stream`, on the calling
-// thread's current device: a CTA a unit of `strip_w` columns by 4 * `rows`
-// rows of a tile, (128 / strip_w) * (16 / rows) CTAs a tile; the pairs
-// compiled are listed below. Returns cudaGetLastError(): a launch the
+// thread's current device: a CTA a unit of UNIT_W x (ROW_STRIDE *
+// UNIT_ROWS) pixels of a tile. Returns cudaGetLastError(): a launch the
 // runtime refused never runs, and a synchronize would not say.
 int raster_blocks_launch(const raster::BlocksParams* params, int n_tiles,
-                         int strip_w, int rows, void* stream) {
+                         void* stream) {
   using namespace raster;
-  cudaStream_t s = (cudaStream_t)stream;
-#define RASTER_BLOCKS_CASE(W, R)                                           \
-  case (W) * 256 + (R):                                                    \
-    raster_blocks_kernel<W, R>                                             \
-        <<<n_tiles * (TILE_W / (W)) * (TILE_H / (ROW_STRIDE * (R))),       \
-           (W) * ROW_STRIDE, 0, s>>>(*params);                             \
-    break;
-  switch (strip_w * 256 + rows) {
-    RASTER_BLOCKS_CASE(32, 4)
-    RASTER_BLOCKS_CASE(64, 4)
-    RASTER_BLOCKS_CASE(32, 8)
-    RASTER_BLOCKS_CASE(32, 16)
-    RASTER_BLOCKS_CASE(128, 16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef RASTER_BLOCKS_CASE
+  raster_blocks_kernel<UNIT_W, UNIT_ROWS>
+      <<<n_tiles * (TILE_W / UNIT_W) * (TILE_H / (ROW_STRIDE * UNIT_ROWS)),
+         UNIT_W * ROW_STRIDE, 0, (cudaStream_t)stream>>>(*params);
   return (int)cudaGetLastError();
 }
 

@@ -384,7 +384,7 @@ __device__ __forceinline__ void store_i16(const PX& f, int x, int oy,
 // ---- The frame blob's fixed point -----------------------------------------
 
 // The reciprocals of the fixed-point scales of a shape command's 16 columns
-// (geometry at 1/8 px, colours at 1/8192: rasterizer._SHAPE_COL_SCALE), of a
+// (geometry at 1/8 px, colours at 1/8192: wire.SHAPE_COL_SCALE), of a
 // glyph or image quad's 8 (x, y, w, h at 1/8 px, the atlas cell's u, v, uw,
 // uh whole), of a glyph's colour (1/8192) and of a clip rect (1/4 px), as
 // np.float32(1 / scale) gives them. Every scale is a power of two, so a

@@ -24,8 +24,8 @@
 //  * a CTA owns a unit of a tile, STRIP_W columns by 4 x N_ROWS rows (32 x
 //    16 by default: 128 threads x 4 pixels, 16 CTAs a tile, 2080 a
 //    1280x800 frame, eight resident on an SM at 64 registers), so a busy
-//    tile spreads over many SMs; the unit is a template parameter and
-//    `chip_smoke.py` times the shapes compiled below;
+//    tile spreads over many SMs; the unit is a template parameter, and the
+//    one instantiated (UNIT_W, UNIT_ROWS) was the fastest of five measured;
 //  * the tile's bins are walked layer by layer and class by class in z
 //    order, in passes of STAGE_PASS slots, a slot a thread: the thread
 //    computes its command's extent once and drops the command if it misses
@@ -100,6 +100,11 @@ struct TileCursor {
 __device__ __forceinline__ int z_width(const LayerTables& L, int z) {
   return z == 0 ? L.ks : z == 1 ? L.ki : L.kg;
 }
+
+// The unit the launch takes: UNIT_W columns by ROW_STRIDE * UNIT_ROWS rows
+// (32 x 16, 16 CTAs a tile), the fastest of five units measured on an H100.
+constexpr int UNIT_W = 32;
+constexpr int UNIT_ROWS = 4;
 
 template <int STRIP_W, int N_ROWS>
 __global__ void __launch_bounds__(STRIP_W * ROW_STRIDE,
@@ -207,30 +212,15 @@ __global__ void __launch_bounds__(STRIP_W * ROW_STRIDE,
 extern "C" {
 
 // Launch `n_tiles` tiles of `params` from its `tile0` on `stream`, on the
-// calling thread's current device: a CTA a unit of `strip_w` columns by
-// 4 * `rows` rows of a tile, (128 / strip_w) * (16 / rows) CTAs a tile; the
-// pairs compiled are listed below. Returns cudaGetLastError(): a launch the
+// calling thread's current device: a CTA a unit of UNIT_W x (ROW_STRIDE *
+// UNIT_ROWS) pixels of a tile. Returns cudaGetLastError(): a launch the
 // runtime refused never runs, and a synchronize would not say.
 int raster_tiles_launch(const raster::RasterParams* params, int n_tiles,
-                        int strip_w, int rows, void* stream) {
+                        void* stream) {
   using namespace raster;
-  cudaStream_t s = (cudaStream_t)stream;
-#define RASTER_TILES_CASE(W, R)                                            \
-  case (W) * 256 + (R):                                                    \
-    raster_tiles_kernel<W, R>                                              \
-        <<<n_tiles * (TILE_W / (W)) * (TILE_H / (ROW_STRIDE * (R))),       \
-           (W) * ROW_STRIDE, 0, s>>>(*params);                             \
-    break;
-  switch (strip_w * 256 + rows) {
-    RASTER_TILES_CASE(32, 4)
-    RASTER_TILES_CASE(64, 4)
-    RASTER_TILES_CASE(32, 8)
-    RASTER_TILES_CASE(32, 16)
-    RASTER_TILES_CASE(128, 16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef RASTER_TILES_CASE
+  raster_tiles_kernel<UNIT_W, UNIT_ROWS>
+      <<<n_tiles * (TILE_W / UNIT_W) * (TILE_H / (ROW_STRIDE * UNIT_ROWS)),
+         UNIT_W * ROW_STRIDE, 0, (cudaStream_t)stream>>>(*params);
   return (int)cudaGetLastError();
 }
 

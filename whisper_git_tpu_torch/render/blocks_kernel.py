@@ -55,14 +55,13 @@ or raises. `render_tiles_blocks.launches` counts kernel launches,
 What bounds the kernel on the card is the step functions' scalar f32
 arithmetic on the pixels a command inks. Its design: work follows ink
 (every command's extent, `raster_kernel.command_extents`, lets a warp skip
-the commands and rows it cannot ink, bit for bit); a CTA owns a small unit
-of a tile, `STRIP_W` columns by 4 x `ROWS_PER_THREAD` rows (32 x 16: 16
-CTAs a tile), so a busy tile spreads over many SMs; a tile's commands are
-staged in shared memory, culled to the unit, in z order; up to
-`MAX_INLINE_BLOCKS` block descriptors ride in the launch's parameter block
-by value (no allocation, no upload), a longer list goes through a device
-array; the i16 and tile-rect epilogues write a cached layer once, with no
-pass after the kernel.
+the commands and rows it cannot ink, bit for bit); a CTA owns a small 32 x
+16 unit of a tile (16 CTAs a tile; `UNIT_W`, `UNIT_ROWS` in the source), so
+a busy tile spreads over many SMs; a tile's commands are staged in shared
+memory, culled to the unit, in z order; up to `MAX_INLINE_BLOCKS` block
+descriptors ride in the launch's parameter block by value (no allocation,
+no upload), a longer list goes through a device array; the i16 and tile-
+rect epilogues write a cached layer once, with no pass after the kernel.
 """
 
 from __future__ import annotations
@@ -76,6 +75,7 @@ import torch
 
 from .. import tracing
 from . import raster_kernel as K
+from . import wire as W
 from .compose_kernel import I16_SCALE
 
 TILE_H = K.TILE_H
@@ -83,10 +83,6 @@ TILE_W = K.TILE_W
 
 # Z order of the classes within a layer: shapes, images, glyphs.
 Z_ORDER = (0, 2, 1)
-_N_TABLES = (2, 3, 2)
-# The columns of each class's tables, in the order the frame blob holds a
-# tail's seven tables (rasterizer._PART_SPECS).
-_TABLE_COLS = ((16, 4), (8, 4, 4), (8, 4))
 
 
 class WindowBlock(NamedTuple):
@@ -116,17 +112,6 @@ class TailBlock(NamedTuple):
     caps: tuple
     bins: int
     k: int
-
-
-def tail_tables(at: int, caps: tuple, ci: int) -> tuple:
-    """The element offsets in the blob of class `ci`'s tables of a tail
-    whose seven tables start at `at`."""
-    fo = at + sum(caps[c] * sum(_TABLE_COLS[c]) for c in range(ci))
-    out = []
-    for cols in _TABLE_COLS[ci]:
-        out.append(fo)
-        fo += caps[ci] * cols
-    return tuple(out)
 
 
 def quantize_i16(layer_f32: torch.Tensor) -> torch.Tensor:
@@ -252,11 +237,6 @@ _PLAIN, _WINDOW, _TAIL = 0, 1, 2       # `kind`
 # block, 4192 B, within the 32764 B a launch carries on Volta and later
 # since CUDA 12.1); a longer list goes through an array in device memory.
 MAX_INLINE_BLOCKS = 64
-# The unit of a tile a CTA owns: STRIP_W columns by 4 * ROWS_PER_THREAD
-# rows. 32 x 16 (16 CTAs a tile) measured fastest; csrc/raster_blocks.cu
-# lists the pairs it compiles.
-STRIP_W = 32
-ROWS_PER_THREAD = 4
 _OUT_U8, _OUT_F32, _OUT_I16 = 0, 1, 2
 
 
@@ -285,7 +265,6 @@ _WHO = "render_tiles_blocks"
 
 def _bind(lib) -> None:
     lib.raster_blocks_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_int,
                                          ctypes.c_void_p]
     lib.raster_blocks_launch.restype = ctypes.c_int
     lib.raster_blocks_error_string.argtypes = [ctypes.c_int]
@@ -307,11 +286,11 @@ def build() -> dict:
 
 
 def _check_tables(tables, ci: int, label: str, device) -> None:
-    if len(tables) != _N_TABLES[ci]:
+    if len(tables) != len(W.TABLE_COLS[ci]):
         raise ValueError(f"{_WHO}: {label} has {len(tables)} tables, class "
-                         f"takes {_N_TABLES[ci]}")
+                         f"takes {len(W.TABLE_COLS[ci])}")
     n = tables[0].shape[0]
-    for tb, cols in zip(tables, _TABLE_COLS[ci]):
+    for tb, cols in zip(tables, W.TABLE_COLS[ci]):
         K.check_tensor(tb, f"{label} table", torch.float32, device, 2, _WHO)
         if tuple(tb.shape) != (n, cols):
             raise ValueError(f"{_WHO}: {label} table is {tuple(tb.shape)}, "
@@ -353,9 +332,8 @@ def _descriptor(block, ci: int, label: str, tiles_y: int, tiles_x: int,
             [*block.tables, P, counts, blob]
     if isinstance(block, TailBlock):
         blob = block.blob
-        offs = tail_tables(block.at, block.caps, ci)
-        end = block.at + sum(c * sum(cols)
-                             for c, cols in zip(block.caps, _TABLE_COLS))
+        offs = W.table_offsets(block.at, block.caps, ci)
+        end = block.at + W.words(block.caps)
         _check_blob(blob, max(end, block.bins + T * block.k), label, device)
         ptrs = [blob.data_ptr() + 2 * o for o in offs]
         return _BLOCK_PACK.pack(
@@ -424,8 +402,7 @@ def _launch(layers_blocks, font_tex, image_atlas, background, tiles_y,
     out = torch.empty((out_h, out_w, 4), device=device, dtype=dtype)
     p.out = out.data_ptr()
     rc = K.launch_on(device, lambda stream: lib.raster_blocks_launch(
-        ctypes.byref(p), (ty1 - ty0) * (tx1 - tx0), STRIP_W, ROWS_PER_THREAD,
-        stream))
+        ctypes.byref(p), (ty1 - ty0) * (tx1 - tx0), stream))
     if rc != 0:
         raise RuntimeError("raster_blocks kernel launch failed: "
                            + lib.raster_blocks_error_string(rc).decode())

@@ -68,6 +68,7 @@ import torch
 from ..tracing import COUNTERS, span
 from . import frame as F
 from . import rasterizer as R
+from . import wire as W
 from .blocks_kernel import quantize_i16 as _quant_i16_planar  # noqa: F401
 from .blocks_kernel import render_tiles_blocks
 from .compose_kernel import PlanRows, compose_tiles
@@ -99,9 +100,6 @@ def _lru_get(cache: dict, key):
     if hit is not None:
         cache[key] = hit  # re-insert → most recently used
     return hit
-
-
-_CLS_TBL = ((0, 1), (2, 3, 4), (5, 6))  # class -> indices into 7-part tuple
 
 
 def compose_enabled() -> bool:
@@ -242,7 +240,7 @@ def _build_group(key, members, chrome_entries, font_tex, image_atlas,
     layers = []
     for _, li, ci, si in members:
         ch = chrome_entries[li]
-        tables = tuple(ch["parts"][j] for j in _CLS_TBL[ci])
+        tables = tuple(ch["parts"][j] for j in W.CLS_TABLES[ci])
         block = (tables, ch["bins"][ci], ch["segs"][ci][si],
                  ch["segs"][ci][si + 1])
         layers.append(_single_class_blocks(ci, block)[0])
@@ -270,7 +268,7 @@ _SHIFT_ROWS: dict = {}   # (dx, dy, clip, device) -> (6,) f32 uniform row
 
 
 def _shift_row(dx: float, dy: float, clip: tuple, device) -> torch.Tensor:
-    """The uniform row `frame._shift_parts` takes: (dx, dy, clip x0, y0,
+    """The uniform row `wire.shift` takes: (dx, dy, clip x0, y0,
     x1, y1) as f32 on `device`, memoized (the same few rows recur)."""
     key = (float(dx), float(dy), tuple(float(c) for c in clip), str(device))
     row = _SHIFT_ROWS.get(key)
@@ -314,7 +312,7 @@ def _build_slab(w, ci, art, caps, font_tex, image_atlas, tiles_x, height,
     # Device: dequantized window parts shifted (dx, -y0s); x clip baked,
     # y clip left open (it rides the compose mask, which varies with dy).
     parts = F._win_parts(w.comp.uid, caps, art["blob"], device)
-    shifted = F._shift_parts(parts, _shift_row(
+    shifted = W.shift(parts, _shift_row(
         float(w.dx), -y0s, (c0, -1e6, c2, 1e6), device))
     # Host: bins over the slab grid from the window-space boxes.
     boxes = art["boxes"][ci]
@@ -325,7 +323,7 @@ def _build_slab(w, ci, art, caps, font_tex, image_atlas, tiles_x, height,
     bins, _ = R._bin_indexed(b, np.arange(b.shape[0], dtype=np.int64),
                              tiles_y_slab, tiles_x, F._CLS_KCAP[ci])
     counts = (bins >= 0).sum(axis=1).astype(np.int32)
-    tables = tuple(shifted[j] for j in _CLS_TBL[ci])
+    tables = tuple(shifted[j] for j in W.CLS_TABLES[ci])
     block = (tables, upload(bins, device), None, upload(counts, device))
     img = _render_layer(_single_class_blocks(ci, block), font_tex,
                         image_atlas, tiles_y_slab, tiles_x, slab_h, width,
@@ -352,16 +350,9 @@ def _dyn_layer_cached(lb, li: int, tiles_y: int, tiles_x: int,
     """Content-keyed memo of the volatile tail's quantized blob + bins:
     thumb geometry recurs across a scroll cycle, so steady frames skip the
     numpy quantize and bin work."""
-    nds, ndg, ndi = lb.n_dyn_shapes, lb.n_dyn_glyphs, lb.n_dyn_images
-    s0 = (lb.n_shapes - nds, lb.n_glyphs - ndg, lb.n_images - ndi)
-    key = (li, tiles_y, tiles_x, subgrid, nds, ndg, ndi,
-           hash(lb.shapes[s0[0]:s0[0] + nds].tobytes()),
-           hash(lb.shape_clips[s0[0]:s0[0] + nds].tobytes()),
-           hash(lb.glyphs[s0[1]:s0[1] + ndg].tobytes()),
-           hash(lb.glyph_colors[s0[1]:s0[1] + ndg].tobytes()),
-           hash(lb.glyph_clips[s0[1]:s0[1] + ndg].tobytes()),
-           hash(lb.images[s0[2]:s0[2] + ndi].tobytes()),
-           hash(lb.image_clips[s0[2]:s0[2] + ndi].tobytes()))
+    nd, tables = F._dyn_tables(lb)
+    key = (li, tiles_y, tiles_x, subgrid, *nd,
+           *(hash(t.tobytes()) for t in tables))
     hit = _DYN_PACK_CACHE.get(key)
     if hit is None:
         hit = F._dyn_layer(lb, li, tiles_y, tiles_x, subgrid=subgrid)
@@ -406,8 +397,7 @@ def frame_tails(blob: torch.Tensor, font_tex, image_atlas, height: int,
         x0px = c0 * TILE_W
         sub_w = min(ts * TILE_W, width - x0px)
         tables_at = fo
-        nwords = sum(dyn_caps[F._PART_CLS[name]] * cols
-                     for name, cols, _ in R._PART_SPECS)
+        nwords = W.words(dyn_caps)
         fo += nwords
         dyn_tables = None
         for ci in range(3):
@@ -421,20 +411,20 @@ def frame_tails(blob: torch.Tensor, font_tex, image_atlas, height: int,
             if ci == 0:
                 # Shapes (thumbs, pulse dots, drag ghosts: the dominant
                 # volatile content) are rasterized inline by the kernel.
-                dyns[(li, ci)] = (tables_at, tables_at + dyn_caps[0] * 16,
+                dyns[(li, ci)] = (*W.table_offsets(tables_at, dyn_caps, 0),
                                   bins_at, dyn_caps[0], k)
                 COUNTERS["compose.tails_inline"] += 1
                 continue
             if dyn_tables is None:
-                dyn_tables = F._dequant_parts(
+                dyn_tables = W.dequantize(
                     blob[tables_at:tables_at + nwords], dyn_caps)
                 if x0px:
                     # A pure translate: the clip bounds are wide open.
-                    dyn_tables = F._shift_parts(dyn_tables, _shift_row(
+                    dyn_tables = W.shift(dyn_tables, _shift_row(
                         float(-x0px), 0.0, (-1e6, -1e6, 1e6, 1e6),
                         blob.device))
             b = blob[bins_at:bins_at + Tsub * k].reshape(Tsub, k).int()
-            tabs = tuple(dyn_tables[j] for j in _CLS_TBL[ci])
+            tabs = tuple(dyn_tables[j] for j in W.CLS_TABLES[ci])
             cnt = (b >= 0).sum(dim=1, dtype=torch.int32)
             dyns[(li, ci)] = _render_layer(
                 _single_class_blocks(ci, (tabs, b, None, cnt)),

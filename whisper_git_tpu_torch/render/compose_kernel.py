@@ -22,7 +22,7 @@ one quantize clip(x·255 + 0.5), alpha 255. The layouts are the port's own:
   dyns    dict (li, ci) -> (shapes, clips, bins, cap, k) for a shape tail
           rasterized inline (op "dyni"): the element offsets in the blob of
           its i16 tables, shapes (cap, 16) and clips (cap, 4) at the
-          fixed-point scales of `rasterizer._PART_SPECS` in frame
+          fixed-point scales of `wire.SCALES` in frame
           coordinates, and of its bins (tiles_y·ts, k), −1 an empty slot, a
           row's entries first, over the sub-grid of tile columns
           [c0, c0 + ts); or an (h, w, 4) f32 premultiplied layer
@@ -48,17 +48,17 @@ What bounds the kernel on the card is bytes: 8 B a pixel of every covered
 layer and slab crop read, 4 B a pixel written. It is short, so it waits for
 its slowest CTA, for each op's loads in turn and, before this design, for
 its own descriptors' upload. The design: a thread owns two neighbouring
-pixels (one 16-byte load a layer), a CTA a strip of 2 x `ROWS_PER_THREAD`
-rows of a tile (eight CTAs a tile), so the tiles under every layer spread
-over more SMs; the op list is walked one op ahead, the next layer's loads
-in flight while this one is blended; up to `MAX_INLINE_OPS` op descriptors
-ride in the launch's parameter block by value (no allocation, no upload,
-no wait), a longer list goes through a device array; the `img` and
-`slab` rows, fixed while a plan lives, are built and checked once a plan
-(`PlanRows`), so a frame packs only its tails' rows; and the kernel reads
-the frame blob itself (the slab starts, a shape tail's i16 tables,
-de-quantized and moved to its sub-grid exactly, and its bins), so no
-device work precedes the launch.
+pixels (one 16-byte load a layer), a CTA a strip of 8 rows of a tile (eight
+CTAs a tile; `COMPOSE_ROWS` in the source), so the tiles under every layer
+spread over more SMs; the op list is walked one op ahead, the next layer's
+loads in flight while this one is blended; up to `MAX_INLINE_OPS` op
+descriptors ride in the launch's parameter block by value (no allocation,
+no upload, no wait), a longer list goes through a device array; the `img`
+and `slab` rows, fixed while a plan lives, are built and checked once a
+plan (`PlanRows`), so a frame packs only its tails' rows; and the kernel
+reads the frame blob itself (the slab starts, a shape tail's i16 tables,
+de-quantized and moved to its sub-grid exactly, and its bins), so no device
+work precedes the launch.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ import torch
 
 from .. import tracing
 from . import raster_kernel as K
-from . import rasterizer as R
+from . import wire as W
 
 TILE_H = K.TILE_H
 TILE_W = K.TILE_W
@@ -83,13 +83,6 @@ _KINDS = {"img": 0, "slab": 1, "dyni": 2, "dyn": 3}
 # Bytes the kernel loads at once from an op's source: an i16 or f32 pixel.
 # A "dyni" op has no source of its own; it reads i16 values of the blob.
 _SRC_ALIGN = {"img": 8, "slab": 8, "dyni": 1, "dyn": 16}
-
-# The reciprocals of the fixed-point scales of a shape command's columns
-# and of its clip rect, as the kernel holds them (`SHAPE_INV`, `CLIP_INV`
-# in csrc/compose_tiles.cu): every scale is a power of two, so a value
-# times its reciprocal is exact.
-SHAPE_INV = (np.float32(1.0) / R._SHAPE_COL_SCALE).astype(np.float32)
-CLIP_INV = np.float32(1.0 / 4.0)
 
 
 # ---------------------------------------------------------------------------
@@ -141,18 +134,15 @@ def decode_tail(blob: torch.Tensor, tail: tuple, c0: int, ts: int,
     column's reciprocal scale, and x moved by −c0·TILE_W (a capsule's two
     end points, a rect's origin, the clip's two x bounds)."""
     shapes_at, clips_at, bins_at, cap, k = tail
-    device = blob.device
-    shapes = blob[shapes_at:shapes_at + cap * 16].reshape(cap, 16).float() \
-        * torch.from_numpy(SHAPE_INV).to(device)
-    clips = blob[clips_at:clips_at + cap * 4].reshape(cap, 4).float() \
-        * torch.tensor(CLIP_INV, device=device)
-    x0 = float(c0 * TILE_W)
-    if x0:
-        seg = shapes[:, 0] == 1.0
-        shapes[:, 1] -= x0
-        shapes[:, 3] = torch.where(seg, shapes[:, 3] - x0, shapes[:, 3])
-        clips[:, 0] -= x0
-        clips[:, 2] -= x0
+    tables = W.dequantize(torch.cat([blob[shapes_at:shapes_at + cap * 16],
+                                     blob[clips_at:clips_at + cap * 4]]),
+                          (cap, 0, 0))
+    if c0:
+        # A pure translate: the clip bounds are wide open.
+        tables = W.shift(tables, torch.tensor(
+            [float(-c0 * TILE_W), 0.0, -1e6, -1e6, 1e6, 1e6],
+            dtype=torch.float32, device=blob.device))
+    shapes, clips = tables[0], tables[1]
     n = tiles_y * ts
     bins = blob[bins_at:bins_at + n * k].reshape(n, k).int()
     return shapes, clips, bins, (bins >= 0).sum(dim=1, dtype=torch.int32)
@@ -265,8 +255,6 @@ _OP_PACK = struct.Struct("<Q8i2f4i")
 # block stay under the 4 KB a launch may carry); a longer list goes through
 # an array in device memory.
 MAX_INLINE_OPS = 48
-# Rows of a tile a thread owns (2, 4 or 8); a CTA owns twice as many.
-ROWS_PER_THREAD = 4
 
 
 class _ComposeParams(ctypes.Structure):
@@ -289,7 +277,7 @@ _WHO = "compose_tiles"
 
 def _bind(lib) -> None:
     lib.compose_tiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_void_p]
+                                         ctypes.c_void_p]
     lib.compose_tiles_launch.restype = ctypes.c_int
     lib.compose_tiles_error_string.argtypes = [ctypes.c_int]
     lib.compose_tiles_error_string.restype = ctypes.c_char_p
@@ -456,7 +444,7 @@ def _launch(blob, starts, images, slabs, dyns, ops, tiles_y, tiles_x,
                       device=device, dtype=torch.uint8)
     p.out = out.data_ptr()
     rc = K.launch_on(device, lambda stream: lib.compose_tiles_launch(
-        ctypes.byref(p), (r1 - r0) * tiles_x, ROWS_PER_THREAD, stream))
+        ctypes.byref(p), (r1 - r0) * tiles_x, stream))
     if rc != 0:
         raise RuntimeError("compose_tiles kernel launch failed: "
                            + lib.compose_tiles_error_string(rc).decode())

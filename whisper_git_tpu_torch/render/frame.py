@@ -62,6 +62,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .. import tracing
 from ..tracing import span
 from . import rasterizer as R
+from . import wire as W
 from .blocks_kernel import TailBlock, WindowBlock, render_tiles_blocks
 from .scene import Scene
 from .transfer import upload
@@ -70,99 +71,6 @@ TILE_H = R.TILE_H
 TILE_W = R.TILE_W
 
 _CLS_KCAP = (R.K_SHAPES, R.K_GLYPHS, R.K_IMAGES)
-
-# part name -> class index (0 shapes, 1 glyphs, 2 images) in _PART_SPECS
-_PART_CLS = {"shapes": 0, "shape_clips": 0, "glyphs": 1, "glyph_colors": 1,
-             "glyph_clips": 1, "images": 2, "image_clips": 2}
-# indices of each class's tables among the 7 parts
-_CLS_TABLES = ((0, 1), (2, 3, 4), (5, 6))
-
-
-def _quant_parts_blob(arrays: dict, used: dict, caps: dict) -> np.ndarray:
-    """Quantize command parts to one i16 blob (same fixed-point spec as
-    rasterizer._PART_SPECS, so pixels stay bit-identical to the packed
-    path)."""
-    parts = []
-    for name, cols, scale in R._PART_SPECS:
-        arr = arrays[name]
-        s = R._part_scale(name, cols, scale)
-        q = np.zeros((caps[name], cols), np.int16)
-        nu = used[name]
-        if nu:
-            q[:nu] = np.clip(np.rint(arr[:nu] * s), -32767.0, 32767.0)
-        parts.append(q.ravel())
-    return np.concatenate(parts)
-
-
-_INV_SCALE_BLOB: dict = {}   # (caps, device) -> per-element 1/scale, f32
-
-
-def _inv_scale_blob(caps: tuple, device) -> torch.Tensor:
-    key = (caps, str(device))
-    inv = _INV_SCALE_BLOB.get(key)
-    if inv is None:
-        inv = upload(np.concatenate([
-            np.tile(1.0 / R._part_scale(name, cols, scale),
-                    caps[_PART_CLS[name]])
-            for name, cols, scale in R._PART_SPECS]), device)
-        if len(_INV_SCALE_BLOB) > 64:
-            _INV_SCALE_BLOB.clear()
-        _INV_SCALE_BLOB[key] = inv
-    return inv
-
-
-def _dequant_parts(blob_i16: torch.Tensor, caps: tuple) -> tuple:
-    """i16 blob → 7 f32 command tables on the blob's device: every value
-    times the reciprocal of its column's scale, in one multiply over the
-    blob; the tables are views of the product."""
-    inv = _inv_scale_blob(caps, blob_i16.device)
-    flat = blob_i16.float() * inv
-    parts = []
-    fo = 0
-    for name, cols, _ in R._PART_SPECS:
-        cap = caps[_PART_CLS[name]]
-        parts.append(flat[fo:fo + cap * cols].reshape(cap, cols))
-        fo += cap * cols
-    return tuple(parts)
-
-
-def _shift_parts(parts: tuple, u: torch.Tensor) -> tuple:
-    """Window-relative f32 tables → screen coordinates (per frame). Same
-    math as rasterizer._unpack_window minus the dequantization, in fewer
-    launches. `u` is the window's uniform row (dx, dy, clip x0, y0, x1,
-    y1, ...) as f32 on the tables' device."""
-    shapes, shape_clips, glyphs, glyph_colors, glyph_clips, images, \
-        image_clips = parts
-    d = u[0:2]
-    d4 = d.repeat(2)
-    clip_lo, clip_hi = u[2:4], u[4:6]
-
-    def shift_clips(c):
-        t = c + d4
-        return torch.cat([torch.maximum(t[:, :2], clip_lo),
-                          torch.minimum(t[:, 2:], clip_hi)], dim=1)
-
-    def shift_origin(q):
-        q = q.clone()
-        q[:, 0:2] += d
-        return q
-
-    if shapes.shape[0]:
-        # A capsule (type 1) moves both end points; a rect only its origin.
-        seg = (shapes[:, 0:1] == 1.0).float()
-        shapes = shapes.clone()
-        shapes[:, 1:3] += d
-        shapes[:, 3:5] += seg * d
-        shape_clips = shift_clips(shape_clips)
-    if glyphs.shape[0]:
-        glyphs = shift_origin(glyphs)
-        glyph_clips = shift_clips(glyph_clips)
-    if images.shape[0]:
-        images = shift_origin(images)
-        image_clips = shift_clips(image_clips)
-    return (shapes, shape_clips, glyphs, glyph_colors, glyph_clips,
-            images, image_clips)
-
 
 # ---------------------------------------------------------------------------
 # Window pair bins (window-space, dy-independent).
@@ -270,7 +178,7 @@ def _win_parts(uid: int, caps: tuple, blob: np.ndarray, device):
     if hit is None:
         while len(_WIN_PARTS_DEV) > 32:
             _WIN_PARTS_DEV.pop(next(iter(_WIN_PARTS_DEV)))
-        hit = _dequant_parts(upload(blob, device), caps)
+        hit = W.dequantize(upload(blob, device), caps)
         _WIN_PARTS_DEV[key] = hit
     return hit
 
@@ -287,33 +195,21 @@ def _chrome_entry(lb, li: int, pos_lists: tuple, tiles_y: int,
     """Device-resident chrome for one layer: dequantized tables, per-class
     tile bins, and per-window-split segment bounds. Keyed by the BYTES of
     the static command prefix — a pure scroll frame hits this outright."""
-    ns = lb.n_shapes - lb.n_dyn_shapes
-    ng = lb.n_glyphs - lb.n_dyn_glyphs
-    ni = lb.n_images - lb.n_dyn_images
+    counts_n = ns, ng, ni = (lb.n_shapes - lb.n_dyn_shapes,
+                             lb.n_glyphs - lb.n_dyn_glyphs,
+                             lb.n_images - lb.n_dyn_images)
     caps = (lb.shapes.shape[0], lb.glyphs.shape[0], lb.images.shape[0])
     if ns == 0 and ng == 0 and ni == 0:
         key = ("empty", li, caps, pos_lists, tiles_y, tiles_x, str(device))
     else:
         key = (li, caps, pos_lists, tiles_y, tiles_x, ns, ng, ni,
-               hash(lb.shapes[:ns].tobytes()),
-               hash(lb.shape_clips[:ns].tobytes()),
-               hash(lb.glyphs[:ng].tobytes()),
-               hash(lb.glyph_colors[:ng].tobytes()),
-               hash(lb.glyph_clips[:ng].tobytes()),
-               hash(lb.images[:ni].tobytes()),
-               hash(lb.image_clips[:ni].tobytes()), str(device))
+               *(hash(t[:counts_n[c]].tobytes())
+                 for t, c in zip(W.parts(lb), W.PART_CLS)), str(device))
     hit = _CHROME_CACHE.get(key)
     if hit is not None:
         return hit
-    arrays = {"shapes": lb.shapes, "shape_clips": lb.shape_clips,
-              "glyphs": lb.glyphs, "glyph_colors": lb.glyph_colors,
-              "glyph_clips": lb.glyph_clips, "images": lb.images,
-              "image_clips": lb.image_clips}
-    counts_n = (ns, ng, ni)
-    used = {n: counts_n[_PART_CLS[n]] for n in arrays}
-    cap_of = {n: caps[_PART_CLS[n]] for n in arrays}
-    blob = _quant_parts_blob(arrays, used, cap_of)
-    parts = _dequant_parts(upload(blob, device), caps)
+    parts = W.dequantize(upload(W.quantize(W.parts(lb), counts_n, caps),
+                                device), caps)
     boxes = (R._intersect_boxes(R._shape_boxes(lb.shapes, ns),
                                 lb.shape_clips[:ns]),
              R._intersect_boxes(R._quad_boxes(lb.glyphs, ng),
@@ -396,6 +292,15 @@ def _dyn_bucket(n: int, hw_key) -> int:
     return cap
 
 
+def _dyn_tables(lb) -> tuple:
+    """A layer's volatile tail, the last rows of each class → (its counts
+    of shapes, glyphs and images, its seven tables)."""
+    nd = (lb.n_dyn_shapes, lb.n_dyn_glyphs, lb.n_dyn_images)
+    n = (lb.n_shapes, lb.n_glyphs, lb.n_images)
+    return nd, tuple(t[n[c] - nd[c]:n[c]]
+                     for t, c in zip(W.parts(lb), W.PART_CLS))
+
+
 def _dyn_layer(lb, li: int, tiles_y: int, tiles_x: int,
                subgrid: bool = False):
     """Quantized dynamic-tail parts + per-frame bins for one layer.
@@ -405,29 +310,17 @@ def _dyn_layer(lb, li: int, tiles_y: int, tiles_x: int,
     boxes touch — a scrollbar thumb occupies a fixed column while it
     moves, so the per-frame render touches about one column instead of
     the frame. Without it (this path) the range is the full grid."""
-    nds, ndg, ndi = lb.n_dyn_shapes, lb.n_dyn_glyphs, lb.n_dyn_images
-    s0, g0, i0 = (lb.n_shapes - nds, lb.n_glyphs - ndg, lb.n_images - ndi)
+    nd3, tables = _dyn_tables(lb)
+    nds, ndg, ndi = nd3
     caps = (_dyn_bucket(nds, (li, 0)), _dyn_bucket(ndg, (li, 1)),
             _dyn_bucket(ndi, (li, 2)))
     if sum(caps) == 0:
         return (np.zeros(0, np.int16), np.zeros(0, np.int16),
                 ((0, 0, 0), (0, 0, 0), 0, tiles_x))
-    arrays = {"shapes": lb.shapes[s0:s0 + nds],
-              "shape_clips": lb.shape_clips[s0:s0 + nds],
-              "glyphs": lb.glyphs[g0:g0 + ndg],
-              "glyph_colors": lb.glyph_colors[g0:g0 + ndg],
-              "glyph_clips": lb.glyph_clips[g0:g0 + ndg],
-              "images": lb.images[i0:i0 + ndi],
-              "image_clips": lb.image_clips[i0:i0 + ndi]}
-    used = {n: arrays[n].shape[0] for n in arrays}
-    cap_of = {n: caps[_PART_CLS[n]] for n in arrays}
-    blob = _quant_parts_blob(arrays, used, cap_of)
-    boxes = (R._intersect_boxes(R._shape_boxes(arrays["shapes"], nds),
-                                arrays["shape_clips"]),
-             R._intersect_boxes(R._quad_boxes(arrays["glyphs"], ndg),
-                                arrays["glyph_clips"]),
-             R._intersect_boxes(R._quad_boxes(arrays["images"], ndi),
-                                arrays["image_clips"]))
+    blob = W.quantize(tables, nd3, caps)
+    boxes = (R._intersect_boxes(R._shape_boxes(tables[0], nds), tables[1]),
+             R._intersect_boxes(R._quad_boxes(tables[2], ndg), tables[4]),
+             R._intersect_boxes(R._quad_boxes(tables[5], ndi), tables[6]))
     c0, c1 = 0, tiles_x
     if subgrid:
         valid = np.concatenate([
@@ -440,7 +333,7 @@ def _dyn_layer(lb, li: int, tiles_y: int, tiles_x: int,
             c0, c1 = 0, 1
     off = np.array([c0 * TILE_W, 0.0, c0 * TILE_W, 0.0], np.float32)
     bins_parts, ks = [], []
-    for ci, nd in enumerate((nds, ndg, ndi)):
+    for ci, nd in enumerate(nd3):
         if caps[ci] == 0:
             ks.append(0)
             continue
@@ -484,10 +377,7 @@ def pack_frame(scene: Scene, device="cpu"):
         caps = R._window_caps(w, slot)
         art = R._window_artifacts(w, caps)
         parts = _win_parts(w.comp.uid, caps, art["blob"], device)
-        uni[gi, 0] = np.clip(np.rint(w.dx * 8.0), -32767, 32767)
-        uni[gi, 1] = np.clip(np.rint(w.dy * 8.0), -32767, 32767)
-        uni[gi, 2:6] = np.clip(
-            np.rint(np.asarray(w.clip, np.float64) * 4.0), -32767, 32767)
+        uni[gi] = W.quantize_uniform(w)
         cls_args, cls_meta = [], []
         for ci in range(3):
             pb = (_win_pair_entry(w.comp.uid, ci, caps, art["boxes"][ci],
@@ -560,20 +450,6 @@ def _gather_pair_bins(P, counts, av, ok, kP: int):
     return P[av].reshape(-1, kP), (counts[av] * ok[:, None]).reshape(-1)
 
 
-_UNIFORM_SCALE: dict = {}   # device -> (8,) f32
-
-
-def _uniform_scale(device) -> torch.Tensor:
-    """1/scale of a window's uniform row: dx, dy at 1/8 px, the clip at
-    1/4 px (exact powers of two, so the product equals the quotient)."""
-    inv = _UNIFORM_SCALE.get(str(device))
-    if inv is None:
-        inv = upload(np.array([1 / 8.0] * 2 + [1 / 4.0] * 4 + [1.0] * 2,
-                              np.float32), device)
-        _UNIFORM_SCALE[str(device)] = inv
-    return inv
-
-
 def build_blocks(frame_blob: torch.Tensor, chrome_args, win_args,
                  meta: tuple) -> tuple:
     """A frame's block lists for K2, per (layer, class): chrome segment,
@@ -593,9 +469,7 @@ def build_blocks(frame_blob: torch.Tensor, chrome_args, win_args,
         parts, bins3, segs3 = chrome_args[li]
         dyn_caps, dyn_ks = dyn_meta[0], dyn_meta[1]  # full grid here
         at = fo
-        if sum(dyn_caps):
-            fo += sum(dyn_caps[_PART_CLS[name]] * cols
-                      for name, cols, _ in R._PART_SPECS)
+        fo += W.words(dyn_caps)
         tails = []
         for k in dyn_ks:
             tails.append(TailBlock(frame_blob, at, dyn_caps, fo, k)
@@ -604,7 +478,7 @@ def build_blocks(frame_blob: torch.Tensor, chrome_args, win_args,
         cls_lists = []
         for ci in range(3):
             blocks = []
-            tbl_idx = _CLS_TABLES[ci]
+            tbl_idx = W.CLS_TABLES[ci]
             chrome_tables = tuple(parts[j] for j in tbl_idx)
             # chrome segment 0, win, segment 1, win, ..., last segment
             for si in range(len(lws) + 1):
@@ -627,22 +501,12 @@ def build_blocks(frame_blob: torch.Tensor, chrome_args, win_args,
     return tuple(layers_blocks)
 
 
-def _class_parts(ci: int, tables: tuple) -> tuple:
-    """The seven tables of `_shift_parts` and `_dequant_parts` with class
-    `ci`'s in their places and no row of the others."""
-    parts = [tables[0].new_empty((0, cols))
-             for _, cols, _ in R._PART_SPECS]
-    for j, tb in zip(_CLS_TABLES[ci], tables):
-        parts[j] = tb
-    return tuple(parts)
-
-
 def resolve_blocks(layers_blocks, tiles_y: int, tiles_x: int) -> tuple:
     """`layers_blocks` with every window and tail block made the plain
     block K2 resolves it to, in torch on the blocks' device: a window's
-    uniform row from the blob (`_uniform_scale`), its tables moved and cut
-    (`_shift_parts`), its pair-bin rows picked and gathered (`_pair_rows`,
-    `_gather_pair_bins`); a tail's tables de-quantized (`_dequant_parts`)
+    uniform row from the blob (`wire.uniform`), its tables moved and cut
+    (`wire.shift`), its pair-bin rows picked and gathered (`_pair_rows`,
+    `_gather_pair_bins`); a tail's tables de-quantized (`wire.dequantize`)
     and its bins widened to i32, each row's `hi` its count of entries.
     Plain blocks are kept as they are."""
     T = tiles_y * tiles_x
@@ -651,21 +515,20 @@ def resolve_blocks(layers_blocks, tiles_y: int, tiles_x: int) -> tuple:
         if isinstance(block, WindowBlock):
             n, wi = block.n_windows, block.window
             head = block.blob[:n * 16].reshape(2, n, 8)
-            u = head[0, wi].float() * _uniform_scale(block.blob.device)
-            shifted = _shift_parts(_class_parts(ci, block.tables), u)
+            u = W.uniform(head[0, wi])
+            shifted = W.shift(W.class_parts(ci, block.tables), u)
             av, ok = _pair_rows(head[1, wi].int(), u[1], tiles_y)
             bins, cnt = _gather_pair_bins(block.P, block.counts, av[ci],
                                           ok[ci], block.P.shape[2])
-            return (tuple(shifted[j] for j in _CLS_TABLES[ci]), bins, None,
+            return (tuple(shifted[j] for j in W.CLS_TABLES[ci]), bins, None,
                     cnt)
         if isinstance(block, TailBlock):
-            nwords = sum(block.caps[_PART_CLS[name]] * cols
-                         for name, cols, _ in R._PART_SPECS)
-            tables = _dequant_parts(block.blob[block.at:block.at + nwords],
-                                    block.caps)
+            tables = W.dequantize(
+                block.blob[block.at:block.at + W.words(block.caps)],
+                block.caps)
             b = block.blob[block.bins:block.bins + T * block.k].reshape(
                 T, block.k).int()
-            return (tuple(tables[j] for j in _CLS_TABLES[ci]), b, None,
+            return (tuple(tables[j] for j in W.CLS_TABLES[ci]), b, None,
                     (b >= 0).sum(dim=1, dtype=torch.int32))
         return block
 

@@ -22,13 +22,12 @@ or raises. `render_tiles.launches` counts kernel launches,
 `render_tiles.launches_on` those on each card (by its index).
 
 What bounds the kernel on the card is the step functions' scalar f32
-arithmetic on the pixels a command inks. Its design: a CTA owns a unit of
-a tile, `STRIP_W` columns by 4 x `ROWS_PER_THREAD` rows (32 x 16: 16 CTAs
-a tile), so a busy tile spreads over many SMs; the tile's bins are staged
-in shared memory layer by layer and class by class, culled to the unit by
-each command's extent (`command_extents`), in z order; the per-layer
-tables ride in the launch's parameter block, packed with `struct` in one
-call a layer.
+arithmetic on the pixels a command inks. Its design: a CTA owns a 32 x 16
+unit of a tile (16 CTAs a tile; `UNIT_W`, `UNIT_ROWS` in the source), so a
+busy tile spreads over many SMs; the tile's bins are staged in shared
+memory layer by layer and class by class, culled to the unit by each
+command's extent (`command_extents`), in z order; the per-layer tables ride
+in the launch's parameter block, packed with `struct` in one call a layer.
 """
 
 from __future__ import annotations
@@ -367,15 +366,6 @@ _TABLES = ("shapes", "shape_clips", "glyphs", "glyph_colors", "glyph_clips",
            "images", "image_clips")
 _BINS = ("s_bins", "g_bins", "i_bins")
 
-# The unit of a tile a CTA owns: STRIP_W columns by 4 * ROWS_PER_THREAD
-# rows. 32 x 16 (16 CTAs a tile) is the default; UNITS are the (STRIP_W,
-# ROWS_PER_THREAD) pairs that csrc/raster_tiles.cu and raster_blocks.cu
-# compile.
-STRIP_W = 32
-ROWS_PER_THREAD = 4
-UNITS = ((32, 4), (64, 4), (32, 8), (32, 16), (128, 16))
-
-
 # `RasterParams` of csrc/raster_tiles.cu as bytes: a `LayerTables` row a
 # layer (its ten pointers, the three widths, the pad), empty rows up to
 # MAX_LAYERS, then the atlases, background, grid and output.
@@ -446,7 +436,6 @@ def build_library(state: dict, source: str, bind) -> dict:
 
 def _bind(lib) -> None:
     lib.raster_tiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p]
     lib.raster_tiles_launch.restype = ctypes.c_int
     lib.raster_tiles_error_string.argtypes = [ctypes.c_int]
@@ -615,7 +604,7 @@ def _launch(layer_data, font_tex, image_atlas, background, tiles_y,
     params = _pack_params(rows, font_tex, image_atlas, background, tiles_y,
                           tiles_x, height, width, out, t0)
     rc = launch_on(device, lambda stream: lib.raster_tiles_launch(
-        params, T - t0, STRIP_W, ROWS_PER_THREAD, stream))
+        params, T - t0, stream))
     if rc != 0:
         raise RuntimeError("raster_tiles kernel launch failed: "
                            + lib.raster_tiles_error_string(rc).decode())

@@ -5,10 +5,10 @@ numpy, device unpack in torch, tiles rasterized by
 Counterpart of `whisper_git_tpu/render/rasterizer.py`. The host half
 (`pack_scene` and its helpers) is the reference's numpy code with the
 fine bucket ladder, and its output is byte-equal to the reference's. The
-wire format is the reference's too: one i32 blob per frame whose i16 half
-carries every command table quantized to fixed point (`_PART_SPECS`), and
-one cached i16 blob per scroll window. The device half de-quantizes the
-blobs, shifts scroll windows into screen space and concatenates each
+wire format is the reference's too (`wire.py` owns it): one i32 blob per
+frame whose i16 half carries every command table quantized to fixed point,
+and one cached i16 blob per scroll window. The device half de-quantizes
+the blobs, shifts scroll windows into screen space and concatenates each
 layer's tables (plain torch ops), then runs the tile kernel. A scene
 over MAX_PACKED_PX, which the i16 wire format cannot hold, skips it:
 `_render_scene_f32_device` splices its windows inline, bins its plain f32
@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..tracing import COUNTERS, span
+from . import wire as W
 from .raster_kernel import TILE_H, TILE_W, render_tiles
 from .scene import Scene, _bucket
 from .transfer import readback, upload
@@ -72,30 +73,6 @@ def _quad_boxes(quads: np.ndarray, n: int) -> np.ndarray:
                     axis=1)
 
 
-# (name, cols, quantization scale) of every command part per layer, in
-# blob order. Geometry at 1/8 px, clip rects at 1/4 px, colors at 1/8192.
-_PART_SPECS = (("shapes", 16, None), ("shape_clips", 4, 4.0),
-               ("glyphs", 8, 8.0), ("glyph_colors", 4, 8192.0),
-               ("glyph_clips", 4, 4.0), ("images", 8, 8.0),
-               ("image_clips", 4, 4.0))
-
-# Shapes mix geometry and color columns: per-column scales.
-_SHAPE_COL_SCALE = np.array(
-    [8.0] * 7 + [8192.0] * 4 + [8192.0] * 4 + [8.0], np.float32)
-
-# Glyph/image quads: screen x,y,w,h at 1/8 px; atlas u,v,uw,uh are exact
-# integers (scale 1).
-_QUAD_COL_SCALE = np.array([8.0] * 4 + [1.0] * 4, np.float32)
-
-
-def _part_scale(name: str, cols: int, scale) -> np.ndarray:
-    if name == "shapes":
-        return _SHAPE_COL_SCALE
-    if name in ("glyphs", "images"):
-        return _QUAD_COL_SCALE
-    return np.full((cols,), scale, np.float32)
-
-
 # Scroll windows: a window's merged command chunks (window-relative
 # coordinates) are quantized once per content change and cached on the
 # device; per frame only an 8-value row (dx, dy, clip) and the merged tile
@@ -130,35 +107,17 @@ def _window_artifacts(w, caps: tuple) -> dict:
     hit = _WIN_HOST_CACHE.get(comp.uid)
     if hit is not None and hit["caps"] == caps:
         return hit
-    cap_of = {"shapes": caps[0], "shape_clips": caps[0],
-              "glyphs": caps[1], "glyph_colors": caps[1],
-              "glyph_clips": caps[1], "images": caps[2],
-              "image_clips": caps[2]}
-    parts = []
-    arrays = {"shapes": comp.shapes, "shape_clips": comp.shape_clips,
-              "glyphs": comp.glyphs, "glyph_colors": comp.glyph_colors,
-              "glyph_clips": comp.glyph_clips, "images": comp.images,
-              "image_clips": comp.image_clips}
-    for name, cols, scale in _PART_SPECS:
-        arr = arrays[name]
-        s = _part_scale(name, cols, scale)
-        q = np.zeros((cap_of[name], cols), np.int16)
-        nu = arr.shape[0]
-        if nu:
-            q[:nu] = np.clip(np.rint(arr[:nu] * s), -32767.0, 32767.0)
-        parts.append(q.ravel())
-    blob = np.concatenate(parts)
+    ns = (comp.shapes.shape[0], comp.glyphs.shape[0], comp.images.shape[0])
     entry = {
-        "caps": caps, "blob": blob,
+        "caps": caps, "blob": W.quantize(W.parts(comp), ns, caps),
         "boxes": (
-            _intersect_boxes(_shape_boxes(comp.shapes, comp.shapes.shape[0]),
+            _intersect_boxes(_shape_boxes(comp.shapes, ns[0]),
                              comp.shape_clips),
-            _intersect_boxes(_quad_boxes(comp.glyphs, comp.glyphs.shape[0]),
+            _intersect_boxes(_quad_boxes(comp.glyphs, ns[1]),
                              comp.glyph_clips),
-            _intersect_boxes(_quad_boxes(comp.images, comp.images.shape[0]),
+            _intersect_boxes(_quad_boxes(comp.images, ns[2]),
                              comp.image_clips)),
-        "ns": (comp.shapes.shape[0], comp.glyphs.shape[0],
-               comp.images.shape[0]),
+        "ns": ns,
     }
     if len(_WIN_HOST_CACHE) > 32:
         _WIN_HOST_CACHE.clear()
@@ -376,11 +335,8 @@ def pack_scene(scene: Scene
 
     # Uniform head: 8 i16 per window — dx, dy @1/8 px; clip @1/4 px; pad.
     uni = np.zeros((len(windows), 8), np.int16)
-    for gi, (w, caps, entry) in enumerate(win_entries):
-        uni[gi, 0] = np.clip(np.rint(w.dx * 8.0), -32767, 32767)
-        uni[gi, 1] = np.clip(np.rint(w.dy * 8.0), -32767, 32767)
-        uni[gi, 2:6] = np.clip(
-            np.rint(np.asarray(w.clip, np.float64) * 4.0), -32767, 32767)
+    for gi, w in enumerate(windows):
+        uni[gi] = W.quantize_uniform(w)
     i16_parts.append(uni.ravel())
 
     for li, lb in enumerate(scene.layers):
@@ -427,23 +383,8 @@ def pack_scene(scene: Scene
                 cls_bins.append(chrome_bins)
         s_bins, g_bins, i_bins = cls_bins
 
-        arrays = {"shapes": lb.shapes, "shape_clips": lb.shape_clips,
-                  "glyphs": lb.glyphs, "glyph_colors": lb.glyph_colors,
-                  "glyph_clips": lb.glyph_clips, "images": lb.images,
-                  "image_clips": lb.image_clips}
-        used = {"shapes": lb.n_shapes, "shape_clips": lb.n_shapes,
-                "glyphs": lb.n_glyphs, "glyph_colors": lb.n_glyphs,
-                "glyph_clips": lb.n_glyphs, "images": lb.n_images,
-                "image_clips": lb.n_images}
-        for name, cols, scale in _PART_SPECS:
-            arr = arrays[name]
-            s = _part_scale(name, cols, scale)
-            # Quantize only the used prefix; padding rows stay zero.
-            q = np.zeros(arr.shape, np.int16)
-            nu = used[name]
-            if nu:
-                q[:nu] = np.clip(np.rint(arr[:nu] * s), -32767.0, 32767.0)
-            i16_parts.append(q.ravel())
+        # Quantize only the used prefix; padding rows stay zero.
+        i16_parts.append(W.quantize(W.parts(lb), occ, caps_c))
         # Bin indices ride in the i16 half unless a layer's concatenated
         # tables reach i16 range; then they go to the i32 section.
         bins16 = max_idx < 32767
@@ -478,66 +419,6 @@ def pack_scene(scene: Scene
 # Device unpack (torch; bit-equal to the reference's unpack_layers).
 # ---------------------------------------------------------------------------
 
-_INV_SCALE_DEV: dict = {}  # (part name, device) -> (cols,) f32
-
-
-def _inv_scale(name: str, cols: int, scale, device) -> torch.Tensor:
-    key = (name, str(device))
-    inv = _INV_SCALE_DEV.get(key)
-    if inv is None:
-        inv = upload(1.0 / _part_scale(name, cols, scale), device)
-        _INV_SCALE_DEV[key] = inv
-    return inv
-
-
-def _shift_clips_dev(c, dx, dy, c0, c1, c2, c3):
-    return torch.stack([torch.maximum(c[:, 0] + dx, c0),
-                        torch.maximum(c[:, 1] + dy, c1),
-                        torch.minimum(c[:, 2] + dx, c2),
-                        torch.minimum(c[:, 3] + dy, c3)], dim=1)
-
-
-def _unpack_window(blob: torch.Tensor, caps: tuple, dx, dy, clip):
-    """De-quantize one window blob and shift it window→screen on the
-    device, clamping clips to the window's viewport rect. dx, dy and the
-    clip are 0-d f32 tensors."""
-    cap_of = {"shapes": caps[0], "shape_clips": caps[0],
-              "glyphs": caps[1], "glyph_colors": caps[1],
-              "glyph_clips": caps[1], "images": caps[2],
-              "image_clips": caps[2]}
-    parts = []
-    fo = 0
-    for name, cols, scale in _PART_SPECS:
-        cap = cap_of[name]
-        raw = blob[fo:fo + cap * cols].reshape(cap, cols)
-        parts.append(raw.float() * _inv_scale(name, cols, scale,
-                                              blob.device))
-        fo += cap * cols
-    shapes, shape_clips, glyphs, glyph_colors, glyph_clips, images, \
-        image_clips = parts
-    c0, c1, c2, c3 = clip
-    zero = torch.zeros((), dtype=torch.float32, device=blob.device)
-    if shapes.shape[0]:
-        seg = shapes[:, 0] == 1.0
-        shapes = torch.cat([
-            shapes[:, 0:1],
-            shapes[:, 1:2] + dx, shapes[:, 2:3] + dy,
-            shapes[:, 3:4] + torch.where(seg, dx, zero)[:, None],
-            shapes[:, 4:5] + torch.where(seg, dy, zero)[:, None],
-            shapes[:, 5:]], dim=1)
-        shape_clips = _shift_clips_dev(shape_clips, dx, dy, c0, c1, c2, c3)
-    if glyphs.shape[0]:
-        glyphs = torch.cat([glyphs[:, 0:1] + dx, glyphs[:, 1:2] + dy,
-                            glyphs[:, 2:]], dim=1)
-        glyph_clips = _shift_clips_dev(glyph_clips, dx, dy, c0, c1, c2, c3)
-    if images.shape[0]:
-        images = torch.cat([images[:, 0:1] + dx, images[:, 1:2] + dy,
-                            images[:, 2:]], dim=1)
-        image_clips = _shift_clips_dev(image_clips, dx, dy, c0, c1, c2, c3)
-    return (shapes, shape_clips, glyphs, glyph_colors, glyph_clips,
-            images, image_clips)
-
-
 def unpack_layers(fused: torch.Tensor, win_blobs: tuple, meta: tuple,
                   T: int):
     """Device unpack + de-quantization of one packed frame. `fused` is the
@@ -551,22 +432,15 @@ def unpack_layers(fused: torch.Tensor, win_blobs: tuple, meta: tuple,
                 if i16_words else fused.new_empty(0, dtype=torch.int16))
     blob_i32 = fused[i16_words:]
     fo = n_win * 8
-    uni = blob_i16[:fo].reshape(n_win, 8).float() if n_win else None
+    uni = W.uniform(blob_i16[:fo].reshape(n_win, 8)) if n_win else None
     layer_data = []
     layer_sig = []
     io = 0
     for (ns, ng, ni, ks, kg, ki, has_s, has_g, has_i, bins16,
          wins) in meta[2:]:
-        caps = {"shapes": ns, "shape_clips": ns, "glyphs": ng,
-                "glyph_colors": ng, "glyph_clips": ng, "images": ni,
-                "image_clips": ni}
-        parts = []
-        for name, cols, scale in _PART_SPECS:
-            cap = caps[name]
-            raw = blob_i16[fo:fo + cap * cols].reshape(cap, cols)
-            parts.append(raw.float() * _inv_scale(name, cols, scale,
-                                                  fused.device))
-            fo += cap * cols
+        nwords = W.words((ns, ng, ni))
+        parts = W.dequantize(blob_i16[fo:fo + nwords], (ns, ng, ni))
+        fo += nwords
         bins = []
         for k in (ks, kg, ki):
             if bins16:
@@ -576,12 +450,10 @@ def unpack_layers(fused: torch.Tensor, win_blobs: tuple, meta: tuple,
                 bins.append(blob_i32[io:io + T * k].reshape(T, k))
                 io += T * k
         if wins:
-            wparts = []
-            for gi, wcaps in wins:
-                u = uni[gi]
-                wparts.append(_unpack_window(
-                    win_blobs[gi], wcaps, u[0] / 8.0, u[1] / 8.0,
-                    (u[2] / 4.0, u[3] / 4.0, u[4] / 4.0, u[5] / 4.0)))
+            # Each window de-quantized and moved to screen space, its
+            # clips cut to its viewport.
+            wparts = [W.shift(W.dequantize(win_blobs[gi], wcaps), uni[gi])
+                      for gi, wcaps in wins]
             parts = [torch.cat([parts[pi]] + [wp[pi] for wp in wparts])
                      for pi in range(7)]
         layer_data.append(tuple(parts) + tuple(bins))
@@ -628,9 +500,7 @@ def _render_scene_f32_device(scene: Scene, font_tex: torch.Tensor,
     with span("oversized.upload"):
         layer_data = tuple(
             tuple(upload(np.ascontiguousarray(a), device)
-                  for a in (lb.shapes, lb.shape_clips, lb.glyphs,
-                            lb.glyph_colors, lb.glyph_clips, lb.images,
-                            lb.image_clips) + lbins)
+                  for a in W.parts(lb) + lbins)
             for lb, lbins in zip(flat.layers, bins))
     layer_sig = tuple((lb.n_shapes > 0, lb.n_glyphs > 0, lb.n_images > 0)
                       for lb in flat.layers)

@@ -223,7 +223,7 @@ def synthetic_compose(case: str, seed: int, width: int = 384,
     "tiles_x", "background", "height", "width"}. The i16 blob holds the
     slab starts (`starts` is their slice) and then each inline tail's
     tables, quantized in frame coordinates at the scales of
-    `rasterizer._PART_SPECS`, and its bins, as `compose._pack_frame_blob`
+    `wire.SCALES`, and its bins, as `compose._pack_frame_blob`
     lays out a layer whose tail is shapes alone. Between them the cases
     hold every op kind: "layers" a full-frame layer, a rect that starts at
     tile (1, 1) and ends on the frame's ragged last tile row, and three
@@ -232,6 +232,7 @@ def synthetic_compose(case: str, seed: int, width: int = 384,
     pre-rendered tail at tile columns ≥ 1 between layers; "empty" no op at
     all; "windowless" layers and a tail with no slab."""
     from ..render import rasterizer as R
+    from ..render import wire as W
 
     TILE_H, TILE_W = R.TILE_H, R.TILE_W
     if case not in COMPOSE_CASES:
@@ -266,8 +267,9 @@ def synthetic_compose(case: str, seed: int, width: int = 384,
         shapes[:, 1] += x0
         shapes[:, 3] += np.where(shapes[:, 0] == 1.0, x0, 0.0)
         clips[:, 0::2] += x0
-        tails.append((li, _quantized(shapes, R._SHAPE_COL_SCALE),
-                      _quantized(clips, 4.0), bins.astype(np.int16)))
+        tails.append((li, n, W.quantize((shapes, clips) + (None,) * 5,
+                                        (n, 0, 0), (n, 0, 0)),
+                      bins.astype(np.int16)))
         ops.append(("dyni", li, 0, c0, ts))
 
     def dyn(li: int, ci: int, c0: int, ts: int):
@@ -295,23 +297,15 @@ def synthetic_compose(case: str, seed: int, width: int = 384,
         dyn(1, 2, 0, tiles_x)
     parts = [np.asarray(starts, np.int16)]
     at = len(starts)
-    for li, q_shapes, q_clips, bins in tails:
-        cap = q_shapes.shape[0]
-        dyns[(li, 0)] = (at, at + cap * 16, at + cap * 20, cap,
-                         bins.shape[1])
-        parts += [q_shapes.ravel(), q_clips.ravel(), bins.ravel()]
-        at += cap * 20 + bins.size
+    for li, cap, q_tables, bins in tails:
+        dyns[(li, 0)] = (*W.table_offsets(at, (cap, 0, 0), 0),
+                         at + q_tables.size, cap, bins.shape[1])
+        parts += [q_tables, bins.ravel()]
+        at += q_tables.size + bins.size
     return {"blob": np.concatenate(parts), "starts": slice(0, len(starts)),
             "images": images, "slabs": slabs, "dyns": dyns, "ops": tuple(ops),
             "tiles_y": tiles_y, "tiles_x": tiles_x,
             "background": BACKGROUND[:3], "height": height, "width": width}
-
-
-def _quantized(values: np.ndarray, scale) -> np.ndarray:
-    """`values` in the blob's fixed point: times `scale` (a column's, or
-    one for all), rounded and held to i16."""
-    return np.clip(np.rint(values * np.asarray(scale, np.float32)),
-                   -32767.0, 32767.0).astype(np.int16)
 
 
 def compose_args_to(args: dict, device) -> dict:
