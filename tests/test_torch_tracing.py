@@ -264,14 +264,17 @@ def test_uploads_count_the_arrays_handed_over(port):
     t = transfer.upload(a, "cpu")
     assert torch.equal(t, torch.from_numpy(a))
     assert _delta(c0) == {"upload.calls": 1, "upload.bytes": a.nbytes}
-    # The oversized path hands over the scene's atlas, then per layer its
-    # seven tables and three bins.
+    # The oversized path hands over the scene's atlas, then in one fused
+    # blob per layer its seven tables and three bins, each at a multiple of
+    # 256 B: the parts' bytes are a lower bound on the blob.
     scene = synthetic_scene("shapes", 3, port.regular,
                             port.regular.texture.shape[0], width=4224,
                             height=64)
     flat = scene.inline_windows()
     ty, tx = -(-flat.height // P.TILE_H), -(-flat.width // P.TILE_W)
-    want = scene.image_atlas.nbytes
+    atlas = scene.image_atlas.nbytes
+    parts = 0
+    blob = 0
     for lb in flat.layers:
         bins = (P._bin_commands(P._shape_boxes(lb.shapes, lb.n_shapes),
                                 lb.n_shapes, ty, tx, P.K_SHAPES)[0],
@@ -279,14 +282,19 @@ def test_uploads_count_the_arrays_handed_over(port):
                                 lb.n_glyphs, ty, tx, P.K_GLYPHS)[0],
                 P._bin_commands(P._quad_boxes(lb.images, lb.n_images),
                                 lb.n_images, ty, tx, P.K_IMAGES)[0])
-        want += sum(x.nbytes for x in (lb.shapes, lb.shape_clips, lb.glyphs,
-                                       lb.glyph_colors, lb.glyph_clips,
-                                       lb.images, lb.image_clips) + bins)
+        sizes = [x.nbytes for x in (lb.shapes, lb.shape_clips, lb.glyphs,
+                                    lb.glyph_colors, lb.glyph_clips,
+                                    lb.images, lb.image_clips) + bins]
+        parts += sum(sizes)
+        blob += sum(-(-n // 256) * 256 for n in sizes)
     c1 = tracing.counters()
     _render(scene, port)
     assert _delta(c1) == {"frames.oversized": 1,
-                          "upload.calls": 1 + 10 * len(flat.layers),
-                          "upload.bytes": want}
+                          "upload.calls": 1 + 1,
+                          "upload.bytes": atlas + blob,
+                          "upload.fused_calls": 1,
+                          "upload.fused_parts": 10 * len(flat.layers)}
+    assert blob >= parts
     # A readback counts the frame's bytes.
     c2 = tracing.counters()
     img = P.render_scene(scene, port.font_tex_device())

@@ -27,7 +27,7 @@ from ..tracing import COUNTERS, span
 from . import wire as W
 from .raster_kernel import TILE_H, TILE_W, render_tiles
 from .scene import Scene, _bucket
-from .transfer import readback, upload
+from .transfer import readback, upload, upload_fused
 
 K_SHAPES = 256
 K_GLYPHS = 512
@@ -477,33 +477,39 @@ def _device_window_blob(uid, caps, blob: np.ndarray,
     return d
 
 
-def _render_scene_f32_device(scene: Scene, font_tex: torch.Tensor,
-                             image_atlas: torch.Tensor) -> torch.Tensor:
-    """Oversized-scene path: commands go to the device as plain f32 (no i16
-    quantization), with scroll windows spliced inline on the host at their
-    exact z-positions (`Scene.inline_windows`), binned per layer and class,
-    and rasterized by one `render_tiles` call."""
+def oversized_tables(scene: Scene) -> tuple:
+    """The oversized path's host half: scroll windows spliced inline on the
+    host at their exact z-positions (`Scene.inline_windows`), each layer's
+    commands binned per class → (flat scene, tiles_y, tiles_x, per layer
+    its seven f32 tables and three i32 bins as numpy, layer_sig)."""
     with span("oversized.inline"):
         flat = scene.inline_windows()
-    device = font_tex.device
     tiles_x = -(-flat.width // TILE_W)
     tiles_y = -(-flat.height // TILE_H)
     with span("oversized.bin"):
-        bins = [(
+        tables = tuple(W.parts(lb) + (
             _bin_commands(_shape_boxes(lb.shapes, lb.n_shapes), lb.n_shapes,
                           tiles_y, tiles_x, K_SHAPES)[0],
             _bin_commands(_quad_boxes(lb.glyphs, lb.n_glyphs), lb.n_glyphs,
                           tiles_y, tiles_x, K_GLYPHS)[0],
             _bin_commands(_quad_boxes(lb.images, lb.n_images), lb.n_images,
                           tiles_y, tiles_x, K_IMAGES)[0])
-            for lb in flat.layers]
-    with span("oversized.upload"):
-        layer_data = tuple(
-            tuple(upload(np.ascontiguousarray(a), device)
-                  for a in W.parts(lb) + lbins)
-            for lb, lbins in zip(flat.layers, bins))
+            for lb in flat.layers)
     layer_sig = tuple((lb.n_shapes > 0, lb.n_glyphs > 0, lb.n_images > 0)
                       for lb in flat.layers)
+    return flat, tiles_y, tiles_x, tables, layer_sig
+
+
+def _render_scene_f32_device(scene: Scene, font_tex: torch.Tensor,
+                             image_atlas: torch.Tensor) -> torch.Tensor:
+    """Oversized-scene path: commands go to the device as plain f32 (no i16
+    quantization), every layer's tables and bins of `oversized_tables` in
+    one fused upload, and are rasterized by one `render_tiles` call."""
+    flat, tiles_y, tiles_x, tables, layer_sig = oversized_tables(scene)
+    with span("oversized.upload"):
+        views = upload_fused([a for layer in tables for a in layer],
+                             font_tex.device)
+    layer_data = tuple(views[i:i + 10] for i in range(0, len(views), 10))
     with span("oversized.launch"):
         return render_tiles(layer_data, font_tex, image_atlas,
                             tuple(float(c) for c in flat.background[:3]),

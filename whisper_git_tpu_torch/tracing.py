@@ -65,8 +65,13 @@ COUNTERS: dict = dict.fromkeys((
     # the frame blob itself: scroll windows, and volatile tails.
     "blocks.windows_inline", "blocks.tails_inline",
     # Host-to-device copies of the render path (`render/transfer.py`), and
-    # its own device-to-host reads.
-    "upload.calls", "upload.bytes", "readback.calls", "readback.bytes",
+    # its own device-to-host reads. A fused upload counts once in
+    # `upload.calls`, and the arrays it carries in `upload.fused_parts`; a
+    # staging wait is a fused upload that found its page-locked buffer
+    # still being read by the card.
+    "upload.calls", "upload.bytes", "upload.fused_calls",
+    "upload.fused_parts", "upload.staging_waits", "readback.calls",
+    "readback.bytes",
     # Frames whose device work a render mesh split (the compose path's
     # blend, the frame cache's launch), and the kernel launches its shards
     # made (a shard whose slice holds a row of the output launches one).
