@@ -85,12 +85,15 @@ TILE_W = R.TILE_W
 OVERSCAN = 192
 
 # Device-image caches. Dicts iterate in insertion order, so re-inserting on
-# a hit makes `pop(next(iter(...)))` evict the LEAST recently used entry.
-# Device memory at 1280×800 (i16 RGBA, 8 B a pixel): a full-frame chrome
-# group is 8.2 MB and a slab (1216 rows) 12.5 MB, so the caps of 12 groups
-# and 24 slabs hold under 0.4 GB, and the plans and stacks only hold
-# references to the same tensors: well inside a card's 80 GB, and bounded
-# however long the program runs.
+# a hit makes `pop(next(iter(...)))` evict the LEAST recently used entry;
+# each pop counts in `compose.<cache>_evictions`. Device memory (i16 RGBA,
+# 8 B a pixel): at 1280×800 a full-frame chrome group is 8.2 MB and a slab
+# (1216 rows) 12.5 MB, so the caps of 12 groups and 24 slabs hold under
+# 0.4 GB; at 3840×2160 a full-frame group is 66 MB and a slab (2560 rows)
+# 78.6 MB, about 2.7 GB at the caps. The plans and stacks hold references
+# to the same tensors, which keep an evicted layer alive while a cached
+# plan (6) or stack (8) still names it: well inside a card's 80 GB, and
+# bounded however long the program runs.
 _GROUP_CACHE: dict = {}   # group key -> (layer i16, ty0, tx0)
 _SLAB_CACHE: dict = {}    # slab key  -> dict(y0s, img)
 
@@ -234,28 +237,35 @@ def _chrome_group_image(members, chrome_entries, font_tex, image_atlas,
 def _build_group(key, members, chrome_entries, font_tex, image_atlas,
                  tiles_y, tiles_x, height, width):
     COUNTERS["compose.layer_builds"] += 1
-    # One blocks-kernel pass rendering every member segment in z order.
-    # Each member gets its own pseudo-layer so the kernel preserves the
-    # member order exactly (its class order within a layer is fixed).
-    layers = []
-    for _, li, ci, si in members:
-        ch = chrome_entries[li]
-        tables = tuple(ch["parts"][j] for j in W.CLS_TABLES[ci])
-        block = (tables, ch["bins"][ci], ch["segs"][ci][si],
-                 ch["segs"][ci][si + 1])
-        layers.append(_single_class_blocks(ci, block)[0])
-    oy, ox, y1, x1 = _group_bbox(members, chrome_entries, height, width)
-    ty0, tx0 = oy // TILE_H, ox // TILE_W
-    ty1 = -(-y1 // TILE_H)
-    tx1 = -(-x1 // TILE_W)
+    # The host half: the members' blocks and the ink's tile box (a group's
+    # bins are its chrome entries', binned before the plan is looked up).
+    with span("compose.bin"):
+        # One blocks-kernel pass rendering every member segment in z
+        # order. Each member gets its own pseudo-layer so the kernel
+        # preserves the member order exactly (its class order within a
+        # layer is fixed).
+        layers = []
+        for _, li, ci, si in members:
+            ch = chrome_entries[li]
+            tables = tuple(ch["parts"][j] for j in W.CLS_TABLES[ci])
+            block = (tables, ch["bins"][ci], ch["segs"][ci][si],
+                     ch["segs"][ci][si + 1])
+            layers.append(_single_class_blocks(ci, block)[0])
+        oy, ox, y1, x1 = _group_bbox(members, chrome_entries, height, width)
+        ty0, tx0 = oy // TILE_H, ox // TILE_W
+        ty1 = -(-y1 // TILE_H)
+        tx1 = -(-x1 // TILE_W)
     # Only the ink's tiles are rasterized, once per content change, and
     # written as i16; every later frame then reads only those tiles.
-    layer = _render_layer(tuple(layers), font_tex, image_atlas, tiles_y,
-                          tiles_x, height, width, layer_i16=True,
-                          tile_rect=(ty0, tx0, ty1, tx1))
+    with span("compose.build_launch"):
+        layer = _render_layer(tuple(layers), font_tex, image_atlas, tiles_y,
+                              tiles_x, height, width, layer_i16=True,
+                              tile_rect=(ty0, tx0, ty1, tx1))
+    COUNTERS["compose.built_px"] += layer.shape[0] * layer.shape[1]
     entry = (layer, ty0, tx0)
     while len(_GROUP_CACHE) > _img_cache_cap(12, font_tex.device):
         _GROUP_CACHE.pop(next(iter(_GROUP_CACHE)))
+        COUNTERS["compose.group_evictions"] += 1
     _GROUP_CACHE[key] = entry
     return entry
 
@@ -314,22 +324,27 @@ def _build_slab(w, ci, art, caps, font_tex, image_atlas, tiles_x, height,
     parts = F._win_parts(w.comp.uid, caps, art["blob"], device)
     shifted = W.shift(parts, _shift_row(
         float(w.dx), -y0s, (c0, -1e6, c2, 1e6), device))
-    # Host: bins over the slab grid from the window-space boxes.
-    boxes = art["boxes"][ci]
-    b = boxes + np.array([w.dx, -y0s, w.dx, -y0s], np.float32)
-    b = np.stack([np.maximum(b[:, 0], c0), b[:, 1],
-                  np.minimum(b[:, 2], c2), b[:, 3]], axis=1)
     tiles_y_slab = slab_h // TILE_H
-    bins, _ = R._bin_indexed(b, np.arange(b.shape[0], dtype=np.int64),
-                             tiles_y_slab, tiles_x, F._CLS_KCAP[ci])
-    counts = (bins >= 0).sum(axis=1).astype(np.int32)
-    tables = tuple(shifted[j] for j in W.CLS_TABLES[ci])
-    block = (tables, upload(bins, device), None, upload(counts, device))
-    img = _render_layer(_single_class_blocks(ci, block), font_tex,
-                        image_atlas, tiles_y_slab, tiles_x, slab_h, width,
-                        layer_i16=True)
+    # Host: bins over the slab grid from the window-space boxes, and
+    # their upload.
+    with span("compose.bin"):
+        boxes = art["boxes"][ci]
+        b = boxes + np.array([w.dx, -y0s, w.dx, -y0s], np.float32)
+        b = np.stack([np.maximum(b[:, 0], c0), b[:, 1],
+                      np.minimum(b[:, 2], c2), b[:, 3]], axis=1)
+        bins, _ = R._bin_indexed(b, np.arange(b.shape[0], dtype=np.int64),
+                                 tiles_y_slab, tiles_x, F._CLS_KCAP[ci])
+        counts = (bins >= 0).sum(axis=1).astype(np.int32)
+        tables = tuple(shifted[j] for j in W.CLS_TABLES[ci])
+        block = (tables, upload(bins, device), None, upload(counts, device))
+    with span("compose.build_launch"):
+        img = _render_layer(_single_class_blocks(ci, block), font_tex,
+                            image_atlas, tiles_y_slab, tiles_x, slab_h,
+                            width, layer_i16=True)
+    COUNTERS["compose.built_px"] += img.shape[0] * img.shape[1]
     while len(_SLAB_CACHE) > _img_cache_cap(24, device):
         _SLAB_CACHE.pop(next(iter(_SLAB_CACHE)))
+        COUNTERS["compose.slab_evictions"] += 1
     _SLAB_CACHE[key] = {"img": img, "y0s": y0s}
     return img, y0s, key
 
@@ -490,9 +505,9 @@ def _compose_frame(blob, images, slabs, font_tex, image_atlas,
 # tensors: no flattening, grouping or slab rendering.
 def _img_cache_cap(cap: int, device) -> int:
     """Image-cache capacity: `cap` on a CUDA device (the reckoning beside
-    `_GROUP_CACHE` keeps the caches under half a GB of device memory), a
-    quarter of it on the CPU, where the same layers would sit in the
-    process's own memory."""
+    `_GROUP_CACHE`: under half a GB of device memory at 1280×800, about
+    2.7 GB at 3840×2160), a quarter of it on the CPU, where the same
+    layers would sit in the process's own memory."""
     return cap if torch.device(device).type == "cuda" else max(2, cap // 4)
 
 
@@ -505,9 +520,10 @@ def _memo_stack(kind: str, keys: tuple, arrays, device):
     """Layer collection memoized by the members' content keys and the
     render mesh. A plan rebuild happens every ~128 px of scroll (the window
     uid moves with the layout's materialization bucket) and on any chrome
-    change; whichever side (chrome groups or slabs) is still a cache hit
-    reuses the previous collection object, and the tests key on its
-    identity.
+    change, so on every scroll frame of a scaled scene (`Scene.scaled`
+    splices its windows into the chrome); whichever side (chrome groups
+    or slabs) is still a cache hit reuses the previous collection object,
+    and the tests key on its identity.
 
     With no mesh: a plain tuple of the cache-resident tensors (no copies;
     cropped chrome layers keep their own shapes). Under a mesh: such a
@@ -711,6 +727,7 @@ def _plan(scene, windows, font_tex, image_atlas):
     # every cycle evicts the plan it is about to need.
     while len(_PLAN_CACHE) > _img_cache_cap(6, device):
         _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+        COUNTERS["compose.plan_evictions"] += 1
     _PLAN_CACHE[plan_key] = plan
     return plan, False
 

@@ -57,6 +57,12 @@ COUNTERS: dict = dict.fromkeys((
     "compose.attempted", "compose.declined_subpixel", "compose.plan_hits",
     "compose.plan_builds", "compose.plan_slab_misses",
     "compose.layer_builds",
+    # What the compose path's layer builds cost and what its caches drop:
+    # the device pixels of every chrome group and slab K2 builds (the
+    # layer's height times its width), and one count a least recently
+    # used entry each cache evicts.
+    "compose.built_px", "compose.slab_evictions", "compose.group_evictions",
+    "compose.plan_evictions",
     # The volatile tails of composed frames (`compose.frame_tails`): shape
     # tails K3 decodes from the frame blob itself, and glyph or image
     # tails K2 pre-renders for it.
